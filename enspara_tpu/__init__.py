@@ -1,7 +1,8 @@
-"""enspara_tpu: a TPU-native framework for building and analyzing Markov
-State Models from molecular-dynamics data at scale.
+"""enspara_tpu: an accelerator-native framework for building and analyzing
+Markov State Models from molecular-dynamics data at scale.
 
-Capability-parity rebuild of bowman-lab/enspara, re-architected for TPU:
+Capability-parity rebuild of bowman-lab/enspara, re-architected for an
+accelerator (an NVIDIA GPU):
 JAX/XLA/Pallas kernels replace Cython+OpenMP, a jax.sharding device mesh
 replaces MPI, padded+masked device arrays replace host raggedness in every
 kernel, and lax control flow replaces stateful Python loops.

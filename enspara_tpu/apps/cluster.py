@@ -91,18 +91,11 @@ def process_command_line(argv):
         '--random-state', default=None, type=int,
         help='Random seed for medoid proposals.')
     cluster_args.add_argument(
-        '--locality-sort', default=False, action='store_true',
-        help='Reorder frames by a 1-pivot RMSD key before clustering '
-             'so the tri-skip kernels can elide DMA for provably '
-             'inert tiles even on temporally shuffled data (kcenters '
-             '+ rmsd only). Finds a different — equally valid — '
-             'Gonzalez covering than the unsorted order.')
-    cluster_args.add_argument(
         '--precision', default='fp32', choices=['fp32', 'bf16'],
-        help='bf16 streams frames as bfloat16 through the fused TPU '
-             'k-centers kernels: ~2x frame capacity per chip at ~4e-3 '
-             'relative distance rounding (kcenters + rmsd on TPU '
-             'only).')
+        help='bf16 stores frames as bfloat16 in the k-centers loop: '
+             'half the frame footprint and bytes read per center, '
+             'with distances rounded by up to 2^-8 of the '
+             'structures\' RMS extents (kcenters + rmsd only).')
 
     output_args = parser.add_argument_group('Output Settings')
     output_args.add_argument(
@@ -186,13 +179,7 @@ def process_command_line(argv):
             or args.cluster_distance != 'rmsd'):
         raise exception.ImproperlyConfigured(
             '--precision bf16 is only implemented for kcenters with '
-            'the rmsd metric (the fused TPU streaming path).')
-    if args.locality_sort and (
-            args.Clusterer is not KCenters
-            or args.cluster_distance != 'rmsd'):
-        raise exception.ImproperlyConfigured(
-            '--locality-sort is only implemented for kcenters with '
-            'the rmsd metric (the fused TPU tri-skip path).')
+            'the rmsd metric.')
     if args.Clusterer is not KMedoids:
         for name in (args.init_center_inds, args.init_distances,
                      args.init_assignments):
@@ -221,8 +208,6 @@ def main(argv=None):
         argv = sys.argv
     from ..util.backend import select_platform
     select_platform()   # honors $ENSPARA_TPU_PLATFORM
-    from ..util.compile_cache import enable_compilation_cache
-    enable_compilation_cache()
 
     # Multi-host mode (the analog of the reference's `mpirun -n N
     # cluster ...`, apps/cluster.py:287 under MPI): when the
@@ -236,6 +221,10 @@ def main(argv=None):
             coordinator_address=coord,
             num_processes=int(os.environ['ENSPARA_TPU_NUM_PROCESSES']),
             process_id=int(os.environ['ENSPARA_TPU_PROCESS_ID']))
+    # after the distributed bootstrap: the cache asks which backend
+    # is live, and that starts the backend
+    from ..util.compile_cache import enable_compilation_cache
+    enable_compilation_cache()
 
     args = process_command_line(argv)
 
@@ -260,8 +249,6 @@ def main(argv=None):
 
     if args.precision != 'fp32':
         kwargs['precision'] = args.precision
-    if args.locality_sort:
-        kwargs['sort'] = 'locality'
 
     clustering = args.Clusterer(
         metric=args.cluster_distance,

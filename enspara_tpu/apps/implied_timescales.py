@@ -113,16 +113,16 @@ def process_units(timestep=None, infer_timestep=None):
 
 def _timescales_dispatch(assignments, args):
     """Pick the single-launch batched device path when it is exactly
-    applicable (transpose builder, no trim, gap-free assignments, TPU
-    backend); otherwise the host per-lag fan-out. The batched path runs
-    every lag's counting + builder + eigh in ONE compiled dispatch
-    (fp32 eigensolve: timescales agree with the host to ~1e-3
-    relative)."""
-    import jax
+    applicable (transpose builder, no trim, gap-free assignments, an
+    accelerator backend); otherwise the host per-lag fan-out. The
+    batched path runs every lag's counting + builder + eigh in ONE
+    compiled dispatch (fp32 eigensolve: timescales agree with the host
+    to ~1e-3 relative)."""
+    from ..util.backend import on_accelerator
 
     eligible = (args.symmetrization is builders.transpose
                 and not args.trim
-                and jax.default_backend() == 'tpu')
+                and on_accelerator())
     if eligible:
         data = assignments._data if hasattr(assignments, '_data') \
             else np.asarray(assignments)
@@ -133,7 +133,7 @@ def _timescales_dispatch(assignments, args):
         mesh = frame_mesh()
         logger.info('using single-launch batched device timescales '
                     '(%d lags in one dispatch%s)', len(args.lag_times),
-                    ', lag axis sharded over %d chips' % mesh.size
+                    ', lag axis sharded over %d devices' % mesh.size
                     if mesh.size > 1 else '')
         return implied_timescales_batched(
             assignments, args.lag_times, n_times=args.n_eigenvalues,

@@ -1,7 +1,7 @@
 """`compute-shannon-entropy` app: per-residue rotamer Shannon
 entropies, normalized by each residue's channel capacity.
 
-Design (TPU-repo original): the whole pipeline after rotamer
+Design (original to this repo): the whole pipeline after rotamer
 featurization is three vectorized reductions —
 
 1. per-dihedral occupancy histograms via ONE fused-key ``bincount``

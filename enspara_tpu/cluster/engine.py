@@ -2,14 +2,23 @@
 
 The reference's k-centers outer loop is a stateful Python loop with MPI
 collectives per iteration (enspara/cluster/kcenters.py:217-231, :314-378).
-Here the whole loop is ONE jitted global-view ``lax.while_loop`` over
-frame-sharded arrays: data, distances and assignments carry a
-``NamedSharding(mesh, P('frames'))``, and XLA's SPMD partitioner inserts
-the collectives (the global argmax becomes a cross-shard reduce; the
-``data[argmax]`` center fetch becomes an owner-masked gather + psum) —
-exactly the hand-written MPI choreography of the reference, derived
-automatically. A 1-device mesh degrades to a plain single-chip loop
-with zero communication code.
+Here the whole loop is ONE jitted ``lax.while_loop`` over frame-sharded
+arrays.
+
+* ``metric='rmsd'`` (the main path) runs on frames ingested once into a
+  frame-minor layout (:func:`prepare_rmsd_frames`). Each shard runs one
+  fused iteration per center over its local frames; the global argmax
+  and the broadcast of the new center are explicit mesh collectives
+  under ``shard_map`` — the reference's MPI allgather + Bcast
+  choreography. On a GPU the iteration is the Triton kernel
+  (:mod:`enspara_tpu.ops.kcenters_triton`); on the CPU it is the same
+  arithmetic in plain ``jax.numpy``.
+* The vector metrics run a global-view loop over
+  ``NamedSharding(mesh, P('frames'))`` arrays, and XLA's SPMD
+  partitioner inserts the collectives.
+
+A 1-device mesh degrades to a plain single-device loop with no
+communication.
 
 Padding frames carry ``distance = -inf`` so they are never selected as
 a center, never count toward the stopping criterion, and keep
@@ -26,8 +35,12 @@ import numpy as np
 from ..parallel import mesh as pmesh
 from ..parallel.mesh import FRAME_AXIS, P, NamedSharding
 from ..ops import qcp
+from ..ops.kcenters_triton import BLOCK, kcenters_iteration_triton
+from ..util.backend import device_memory_bytes, on_accelerator
 
 NEG_INF = -jnp.inf
+
+_IMAX = jnp.iinfo(jnp.int32).max
 
 __all__ = ['kcenters_device', 'kcenters_device_fused', 'assign_device',
            'KCentersDeviceResult', 'PreparedRMSDFrames',
@@ -51,13 +64,10 @@ def _hamming_to(X, frame):
     return jnp.mean((X != frame[None]).astype(jnp.float32), axis=-1)
 
 
-def _rmsd_to(X, frame, g=None):
-    """X: (n, N, 3) centered; frame: (N, 3) centered; g optionally
-    precomputed (hoisted out of iteration loops)."""
-    if g is None:
-        g = jnp.sum(X * X, axis=(-2, -1))
-    g_frame = jnp.sum(frame * frame)
-    return qcp.qcp_rmsd_vector(X, frame, g, g_frame)
+def _rmsd_to(X, frame):
+    """X: (n, N, 3) centered; frame: (N, 3) centered."""
+    g = jnp.sum(X * X, axis=(-2, -1))
+    return qcp.qcp_rmsd_vector(X, frame, g, jnp.sum(frame * frame))
 
 
 _METRIC_TO_FRAME = {
@@ -81,19 +91,7 @@ def _kcenters_loop(data, distances, assignments, n_start, n_clusters,
                    dist_cutoff, k_max, metric):
     """Global-view k-centers while_loop. All arrays may be sharded on
     their frame axis; XLA partitions the body automatically."""
-    if metric == 'rmsd':
-        # hoist the per-frame G inner products out of the loop
-        g_all = jnp.sum(data * data, axis=(-2, -1))
-
-        def dist_fn(gidx):
-            frame = data[gidx]
-            g_frame = g_all[gidx]
-            return qcp.qcp_rmsd_vector(data, frame, g_all, g_frame)
-    else:
-        to_frame = _METRIC_TO_FRAME[metric]
-
-        def dist_fn(gidx):
-            return to_frame(data, data[gidx])
+    to_frame = _METRIC_TO_FRAME[metric]
     ctr_inds = jnp.full((k_max,), -1, jnp.int32)
 
     def cond(state):
@@ -104,7 +102,7 @@ def _kcenters_loop(data, distances, assignments, n_start, n_clusters,
         i, dists, assigs, ctrs = state
         gidx = jnp.argmax(dists)      # first-max tie break, global
         ctrs = ctrs.at[i].set(gidx.astype(jnp.int32))
-        d_new = dist_fn(gidx)         # center fetch: cross-shard gather
+        d_new = to_frame(data, data[gidx])  # cross-shard center fetch
         upd = d_new < dists
         dists = jnp.where(upd, d_new, dists)
         assigs = jnp.where(upd, i, assigs)
@@ -159,87 +157,69 @@ def prepare_sharded(X, metric, mesh=None):
     return data_sh, n
 
 
-def kcenters_device(X, metric='euclidean', n_clusters=None,
-                    dist_cutoff=None, k_max=None,
-                    init_distances=None, init_assignments=None,
-                    n_init_centers=0, init_center_indices=None,
-                    mesh=None, precision=None, sort=None):
-    """Run the sharded device k-centers loop.
-
-    Parameters mirror the reference's ``kcenters()``
-    (enspara/cluster/kcenters.py:108); ``X`` is an ndarray of features
-    (n, d) or coordinates (n, n_atoms, 3) for ``metric='rmsd'``.
-    ``precision='bf16'`` (metric='rmsd' on TPU only) streams frames as
-    bfloat16 for ~2x throughput at ~4e-3 relative distance error (see
-    :func:`kcenters_device_fused`). ``None`` (the default) means fp32
-    for raw inputs and inherit-from-prep for
-    :class:`PreparedRMSDFrames`.
-    """
-    if metric not in _METRIC_TO_FRAME:
-        raise ValueError('device engine supports metrics %s, got %r'
-                         % (sorted(_METRIC_TO_FRAME), metric))
-
-    n = len(X)
-    if n_clusters is None and dist_cutoff is None:
-        raise ValueError('Either n_clusters or dist_cutoff is required')
-    if mesh is None:
-        k_est = n_clusters if n_clusters is not None else \
-            (k_max if k_max is not None else n)
-        feat = int(np.prod(np.shape(X)[1:])) or 1
-        mesh = pmesh.maybe_small_job_mesh(float(n) * k_est * feat) \
-            or pmesh.frame_mesh()
-    platform = pmesh.mesh_platform(mesh)
-    if metric == 'rmsd' and (platform == 'tpu' or sort is not None):
-        # TPU fast path: fused Pallas iteration kernel (~2x the
-        # global-view XLA loop; see ops/qcp_update_pallas). Multi-chip
-        # meshes run it SPMD under shard_map with explicit collectives.
-        # sort='locality' is a property of the fused layout, so it
-        # forces this path (interpret mode off TPU — e.g. small jobs
-        # rerouted to the CPU mesh — so the flag gives the same
-        # covering on every backend).
-        def _run_fused():
-            return kcenters_device_fused(
-                X, n_clusters=n_clusters, dist_cutoff=dist_cutoff,
-                k_max=k_max, init_distances=init_distances,
-                init_assignments=init_assignments,
-                n_init_centers=n_init_centers,
-                init_center_indices=init_center_indices,
-                mesh=mesh if mesh.size > 1 else None,
-                interpret=(platform != 'tpu'),
-                precision=precision, sort=sort)
-
-        if mesh.size == 1:
-            # honor a PINNED 1-device mesh: without this, a caller who
-            # routed a job to a specific chip (or to CPU) would have
-            # the fused path land on the default device (r5 review)
-            with jax.default_device(mesh.devices.flat[0]):
-                return _run_fused()
-        return _run_fused()
-    if precision not in (None, 'fp32'):
-        raise ValueError("precision='bf16' requires metric='rmsd' on "
-                         "a TPU backend (the bf16 stream lives in the "
-                         "fused Pallas path)")
-    if sort is not None:
-        raise ValueError("sort='locality' requires metric='rmsd' "
-                         '(the tri-skip layout lives in the fused '
-                         'Pallas path)')
-    if k_max is None:
-        k_max = int(n_clusters) if n_clusters is not None else n
-    k_max = int(min(k_max, n))
-    n_clusters_eff = np.int32(min(n_clusters or n, k_max))
-    cutoff_eff = np.float32(dist_cutoff if dist_cutoff is not None
-                            else 0.0)
-
-    data_sh, _ = prepare_sharded(X, metric, mesh)
-    n_pad = data_sh.shape[0]
-
+def _init_state(n, n_pad, init_distances, init_assignments):
+    """Host (distances, assignments) of length ``n_pad``: +inf / -1 on
+    real frames (or the warm start), -inf on padding."""
     distances = np.full(n_pad, np.inf, np.float32)
     assignments = np.full(n_pad, -1, np.int32)
     if init_distances is not None:
         distances[:n] = init_distances
         assignments[:n] = init_assignments
     distances[n:] = NEG_INF
+    return distances, assignments
 
+
+def _loop_limits(n, n_clusters, dist_cutoff, k_max):
+    if k_max is None:
+        k_max = int(n_clusters) if n_clusters is not None else n
+    k_max = int(min(k_max, n))
+    n_clusters_eff = np.int32(min(n_clusters or n, k_max))
+    cutoff_eff = np.float32(dist_cutoff if dist_cutoff is not None
+                            else 0.0)
+    return k_max, n_clusters_eff, cutoff_eff
+
+
+def kcenters_device(X, metric='euclidean', n_clusters=None,
+                    dist_cutoff=None, k_max=None,
+                    init_distances=None, init_assignments=None,
+                    n_init_centers=0, init_center_indices=None,
+                    mesh=None, precision=None):
+    """Run the sharded device k-centers loop.
+
+    Parameters mirror the reference's ``kcenters()``
+    (enspara/cluster/kcenters.py:108); ``X`` is an ndarray of features
+    (n, d) or coordinates (n, n_atoms, 3) for ``metric='rmsd'``.
+    ``metric='rmsd'`` runs :func:`kcenters_device_fused`, whose
+    ``precision='bf16'`` stores frames as bfloat16 (see there for the
+    rounding bound). ``None`` (the default) means fp32 for raw inputs
+    and inherit-from-prep for :class:`PreparedRMSDFrames`.
+    """
+    if metric not in _METRIC_TO_FRAME:
+        raise ValueError('device engine supports metrics %s, got %r'
+                         % (sorted(_METRIC_TO_FRAME), metric))
+    if n_clusters is None and dist_cutoff is None:
+        raise ValueError('Either n_clusters or dist_cutoff is required')
+    if mesh is None:
+        mesh = pmesh.frame_mesh()
+    if metric == 'rmsd':
+        return kcenters_device_fused(
+            X, n_clusters=n_clusters, dist_cutoff=dist_cutoff,
+            k_max=k_max, init_distances=init_distances,
+            init_assignments=init_assignments,
+            n_init_centers=n_init_centers,
+            init_center_indices=init_center_indices,
+            mesh=mesh, precision=precision)
+    if precision not in (None, 'fp32'):
+        raise ValueError("precision='bf16' applies to metric='rmsd' "
+                         'only, got metric=%r' % (metric,))
+
+    n = len(X)
+    k_max, n_clusters_eff, cutoff_eff = _loop_limits(
+        n, n_clusters, dist_cutoff, k_max)
+
+    data_sh, _ = prepare_sharded(X, metric, mesh)
+    distances, assignments = _init_state(
+        n, data_sh.shape[0], init_distances, init_assignments)
     dist_sh, _ = pmesh.shard_frames(distances, mesh)
     assig_sh, _ = pmesh.shard_frames(assignments, mesh)
 
@@ -247,7 +227,12 @@ def kcenters_device(X, metric='euclidean', n_clusters=None,
         data_sh, dist_sh, assig_sh,
         np.int32(n_init_centers), n_clusters_eff, cutoff_eff,
         k_max, metric)
+    return _result(dists, assigs, ctrs, n_found, n, n_init_centers,
+                   init_center_indices)
 
+
+def _result(dists, assigs, ctrs, n_found, n, n_init_centers,
+            init_center_indices):
     dists = pmesh.host_fetch(dists)[:n].astype(np.float64)
     assigs = pmesh.host_fetch(assigs)[:n].astype(np.int64)
     n_found = int(pmesh.host_fetch(n_found))
@@ -261,17 +246,9 @@ def kcenters_device(X, metric='euclidean', n_clusters=None,
 # batched assignment: every frame to its nearest center
 # ---------------------------------------------------------------------
 
-def _pairwise_block(data, cblock, metric, platform=None):
-    """(n, B) distances from all frames to one block of centers, as one
-    batched MXU computation. ``platform`` is the lowering target when
-    the operands live off the default backend (small jobs rerouted to
-    CPU); None means the default backend."""
+def _pairwise_block(data, cblock, metric):
+    """(n, B) distances from all frames to one block of centers."""
     if metric == 'rmsd':
-        if (platform or jax.default_backend()) == 'tpu':
-            # fused kernel: the XLA path materializes the (n, B, 3, 3)
-            # S tensor, which tile-pads (3, 3) -> (4, 128)
-            from ..ops.qcp_pallas import qcp_rmsd_matrix_pallas
-            return qcp_rmsd_matrix_pallas(data, cblock)
         g_data = jnp.sum(data * data, axis=(-2, -1))
         g_c = jnp.sum(cblock * cblock, axis=(-2, -1))
         return qcp.qcp_rmsd_matrix(data, cblock, g_data, g_c)
@@ -287,19 +264,37 @@ def _pairwise_block(data, cblock, metric, platform=None):
     raise ValueError(metric)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=('metric', 'k_real', 'platform'))
-def _assign_all(data, centers, metric, k_real=None, platform=None):
+# bytes one (frame, center) pair holds at once in a pairwise block: the
+# (3, 3) fp32 inner products of the rmsd metric, the distance and a
+# margin for the fused epilogue's temporaries
+_PAIR_BYTES = 64
+_MAX_ASSIGN_BLOCK = 512
+
+
+def _assign_block(n_local, k, mesh):
+    """Centers per pairwise block: the largest power of two up to 512
+    whose ``(n_local, block)`` working set fits a quarter of one
+    device's memory (2 GiB where the device reports none)."""
+    budget = (device_memory_bytes(mesh.devices.flat[0])
+              or 8 << 30) // 4
+    block = _MAX_ASSIGN_BLOCK
+    while block > 1 and n_local * block * _PAIR_BYTES > budget:
+        block //= 2
+    return int(min(block, k))
+
+
+@functools.partial(jax.jit, static_argnames=('metric', 'k_real', 'block'))
+def _assign_all(data, centers, metric, k_real=None, block=512):
     """Assign every frame to its nearest center: a scan over center
     blocks carrying the running (min distance, argmin) — peak memory is
-    (n, block) regardless of k, and each block is one batched MXU
+    (n, block) regardless of k, and each block is one batched
     computation. First-min tie break matches the reference's strict-<
     update loop."""
     n = data.shape[0]
     k = centers.shape[0]
     if k_real is None:
         k_real = k
-    block = min(512, k)
+    block = min(block, k)
     n_blocks = (k + block - 1) // block
     k_pad = n_blocks * block
     if k_pad != k:
@@ -310,7 +305,7 @@ def _assign_all(data, centers, metric, k_real=None, platform=None):
     def step(carry, inp):
         best_d, best_i = carry
         b_idx, cblock = inp
-        d = _pairwise_block(data, cblock, metric, platform)  # (n, block)
+        d = _pairwise_block(data, cblock, metric)  # (n, block)
         # mask padded centers (indices >= k_real)
         cid = b_idx * block + jnp.arange(block)
         d = jnp.where(cid[None, :] < k_real, d, jnp.inf)
@@ -331,78 +326,6 @@ def _assign_all(data, centers, metric, k_real=None, platform=None):
     return assigs, dists
 
 
-@functools.partial(jax.jit, static_argnames=('k_real', 'interpret'))
-def _assign_all_rmsd_pallas(data, centers, k_real, interpret=False):
-    """RMSD nearest-center assignment through the fused Pallas kernel,
-    scanning center blocks with a running min. Single-device path (the
-    kernel is not SPMD-partitioned yet)."""
-    from ..ops.qcp_pallas import _call_pallas, TILE_F, TILE_C
-
-    n, A = data.shape[0], data.shape[1]
-    k = centers.shape[0]
-    block = TILE_C
-    n_blocks = (k + block - 1) // block
-    k_pad = n_blocks * block
-    n_pad = ((n + TILE_F - 1) // TILE_F) * TILE_F
-    A_pad = ((A + 127) // 128) * 128
-
-    g_data = jnp.sum(data * data, axis=(-2, -1))
-    g_c = jnp.sum(centers * centers, axis=(-2, -1))
-
-    data_t = jnp.pad(jnp.transpose(data, (2, 0, 1)),
-                     ((0, 0), (0, n_pad - n), (0, A_pad - A)))
-    centers_t = jnp.pad(jnp.transpose(centers, (2, 0, 1)),
-                        ((0, 0), (0, k_pad - k), (0, A_pad - A)))
-    gf = jnp.pad(g_data, (0, n_pad - n),
-                 constant_values=1.0).reshape(-1, 1)
-    gc = jnp.pad(g_c, (0, k_pad - k),
-                 constant_values=1.0).reshape(-1, 1)
-
-    cblocks = centers_t.reshape(3, n_blocks, block, A_pad) \
-        .transpose(1, 0, 2, 3)                     # (nb, 3, block, A)
-    gc_blocks = gc.reshape(n_blocks, block, 1)
-
-    def step(carry, inp):
-        best_d, best_i = carry
-        b_idx, cb, gcb = inp
-        d = _call_pallas(data_t, cb, gf, gcb, int(A),
-                         interpret=interpret)       # (n_pad, block)
-        cid = b_idx * block + jnp.arange(block)
-        d = jnp.where(cid[None, :] < k_real, d, jnp.inf)
-        local_arg = jnp.argmin(d, axis=1)
-        local_min = jnp.take_along_axis(
-            d, local_arg[:, None], axis=1)[:, 0]
-        upd = local_min < best_d
-        best_d = jnp.where(upd, local_min, best_d)
-        best_i = jnp.where(
-            upd, (b_idx * block + local_arg).astype(jnp.int32), best_i)
-        return (best_d, best_i), None
-
-    init = (jnp.full((n_pad,), jnp.inf, jnp.float32),
-            jnp.zeros((n_pad,), jnp.int32))
-    (dists, assigs), _ = jax.lax.scan(
-        step, init, (jnp.arange(n_blocks), cblocks, gc_blocks))
-    return assigs[:n], dists[:n]
-
-
-def _assign_rmsd_pallas_sharded(data_sh, centers_r, k_real, mesh):
-    """Per-shard Pallas assignment under shard_map: frames stay local,
-    centers are replicated, no cross-shard communication needed."""
-    from ..parallel.mesh import P, FRAME_AXIS
-
-    interpret = jax.default_backend() != 'tpu'
-
-    def body(d, c):
-        return _assign_all_rmsd_pallas(d, c, k_real=k_real,
-                                       interpret=interpret)
-
-    return jax.jit(jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(P(FRAME_AXIS), P()),
-        out_specs=(P(FRAME_AXIS), P(FRAME_AXIS)),
-        check_vma=False))(data_sh, centers_r)
-
-
 def assign_device(X, centers, metric='euclidean', mesh=None):
     """Assign every frame to its nearest center on the mesh — the
     batched device form of the reference's ``assign_to_nearest_center``
@@ -412,366 +335,91 @@ def assign_device(X, centers, metric='euclidean', mesh=None):
     """
     n = len(X)
     if mesh is None:
-        feat = int(np.prod(np.shape(X)[1:])) or 1
-        mesh = pmesh.maybe_small_job_mesh(
-            float(n) * len(centers) * feat) or pmesh.frame_mesh()
-    platform = pmesh.mesh_platform(mesh)
+        mesh = pmesh.frame_mesh()
     data_sh, _ = prepare_sharded(X, metric, mesh)
     centers_host = _prepare_data(centers, metric)
     centers_r = pmesh.replicated(centers_host, mesh) \
         if not isinstance(centers_host, jax.Array) else centers_host
     if metric == 'rmsd':
         centers_r = _center_structures(centers_r)
-    use_pallas = metric == 'rmsd' and platform == 'tpu'
-    if use_pallas and mesh.size == 1:
-        assigs, dists = _assign_all_rmsd_pallas(
-            data_sh, centers_r, k_real=int(centers_r.shape[0]))
-    elif use_pallas:
-        assigs, dists = _assign_rmsd_pallas_sharded(
-            data_sh, centers_r, int(centers_r.shape[0]), mesh)
-    else:
-        assigs, dists = _assign_all(data_sh, centers_r, metric,
-                                    k_real=int(centers_r.shape[0]),
-                                    platform=platform)
+    k = int(centers_r.shape[0])
+    block = _assign_block(data_sh.shape[0] // mesh.size, k, mesh)
+    assigs, dists = _assign_all(data_sh, centers_r, metric, k_real=k,
+                                block=block)
     return (np.asarray(assigs)[:n].astype(np.int64),
             np.asarray(dists)[:n].astype(np.float64))
 
 
 # ---------------------------------------------------------------------
-# fused single-device k-centers loop (Pallas iteration kernel)
+# RMSD k-centers on the prepared frame-minor layout
 # ---------------------------------------------------------------------
 
-@functools.partial(jax.jit,
-                   static_argnames=('k_max', 'n_atoms_real',
-                                    'interpret', 'tile'))
-def _kcenters_loop_fused(frames_r, g, dist, assig, n_start, n_clusters,
-                         dist_cutoff, k_max, n_atoms_real,
-                         interpret=False, tile=None):
-    """k-centers while_loop where each iteration is ONE fused Pallas
-    call (ops/qcp_update_pallas): rmsd + min update in a single pass
-    over the frames. Single-device path for metric='rmsd'.
-
-    ``frames_r``: (3*A_pad, n) with rows ``i*A_pad + a`` (see the
-    kernel module docstring for why this layout); g/dist/assig: (1, n).
-    """
-    from ..ops.qcp_update_pallas import (kcenters_iteration_pallas,
-                                         TILE_N)
-
-    if tile is None:
-        tile = TILE_N
-    rows = frames_r.shape[0]
-    a_pad = rows // 3
-    ctr_inds = jnp.full((k_max,), -1, jnp.int32)
-
-    gidx0 = jnp.argmax(dist[0]).astype(jnp.int32)
-    md0 = dist[0, gidx0]
-
-    def cond(state):
-        i, d, a, c, gidx, md = state
-        return (i < n_clusters) & (md > dist_cutoff)
-
-    def step(state):
-        i, d, a, c, gidx, md = state
-        c = c.at[i].set(gidx)
-        # center column -> (A_pad, 3) coordinate matrix
-        col = jax.lax.dynamic_slice(frames_r, (0, gidx), (rows, 1))
-        cvec = col.reshape(3, a_pad).T                 # cvec[a, j]
-        gb = jax.lax.dynamic_slice(g, (0, gidx), (1, 1))
-        cid = jnp.reshape(i, (1, 1)).astype(jnp.int32)
-        # the kernel's epilogue hands back the next (max, argmax), so
-        # no separate 4 MB argmax pass runs between iterations
-        d, a, lm, la = kcenters_iteration_pallas(
-            frames_r, g, d, a, cvec, gb, cid, n_atoms_real,
-            interpret=interpret, tile=tile, with_argmax=True)
-        return (i + 1, d, a, c, la[0, 0], lm[0, 0])
-
-    init = (jnp.asarray(n_start, jnp.int32), dist, assig, ctr_inds,
-            gidx0, md0)
-    i, d, a, c, _, _ = jax.lax.while_loop(cond, step, init)
-    return d, a, c, i
-
-
-@functools.partial(jax.jit,
-                   static_argnames=('k_max', 'n_atoms_real',
-                                    'interpret', 'tile', 'chunk_g'))
-def _kcenters_loop_megafused(frames_r, g, dist, assig, n_start,
-                             n_clusters, dist_cutoff, k_max,
-                             n_atoms_real, interpret=False, tile=None,
-                             chunk_g=64):
-    """k-centers loop where each while_loop step runs ``chunk_g``
-    WHOLE iterations inside one pallas call
-    (ops/kcenters_chunk_pallas): the per-center argmax, center-column
-    gather, distance kernel and min-update all live in the kernel, so
-    the per-center fixed cost (launch + separate argmax pass) is paid
-    once per chunk instead of once per center."""
-    from ..ops.kcenters_chunk_pallas import kcenters_chunk_pallas
-
-    G = int(min(chunk_g, k_max))
-    ctr_pad = jnp.full((k_max + G,), -1, jnp.int32)
-    gidx0 = jnp.argmax(dist[0]).astype(jnp.int32)
-    md0 = dist[0, gidx0]
-    ntot = jnp.full((1, 1), n_clusters, jnp.int32)
-    cut = jnp.full((1, 1), dist_cutoff, jnp.float32)
-
-    def cond(state):
-        i, d, a, c, gidx, md = state
-        return (i < n_clusters) & (md > dist_cutoff)
-
-    def step(state):
-        i, d, a, c, gidx, md = state
-        d, a, ctrs, g2, m2 = kcenters_chunk_pallas(
-            frames_r, g, d, a,
-            jnp.reshape(gidx, (1, 1)).astype(jnp.int32),
-            jnp.reshape(md, (1, 1)).astype(jnp.float32),
-            jnp.reshape(i, (1, 1)).astype(jnp.int32), ntot, cut,
-            G, n_atoms_real, interpret=interpret, tile=tile)
-        placed = jnp.sum(ctrs[:, 0] != -1).astype(jnp.int32)
-        c = jax.lax.dynamic_update_slice(c, ctrs[:, 0], (i,))
-        return (i + placed, d, a, c, g2[0, 0], m2[0, 0])
-
-    init = (jnp.asarray(n_start, jnp.int32), dist, assig, ctr_pad,
-            gidx0, md0)
-    i, d, a, c = jax.lax.while_loop(cond, step, init)[:4]
-    return d, a, c[:k_max], i
-
-
-@functools.partial(jax.jit,
-                   static_argnames=('k_max', 'n_atoms_real',
-                                    'interpret', 'tile', 'chunk_g'))
-def _kcenters_loop_megafused_skip(frames_r, g, dist, assig, n_start,
-                                  n_clusters, dist_cutoff, k_max,
-                                  n_atoms_real, interpret=False,
-                                  tile=None, chunk_g=64):
-    """The megafused chunk loop with tile-granular triangle-inequality
-    DMA skipping (ops/kcenters_skip_pallas): per-tile (max, argmax)
-    summaries are carried across chunk calls, and a tile whose max
-    cached distance is <= md/2 never crosses HBM this iteration.
-    Results are bit-identical to :func:`_kcenters_loop_megafused`
-    (the skip bound is exactly the strict-< no-op region).
-
-    Also returns the per-center skipped-tile counts for the skip-
-    fraction ablation (-1 marks unplaced slots)."""
-    from ..ops.kcenters_skip_pallas import (kcenters_chunk_skip_pallas,
-                                            skip_t_pad, tile_summaries)
-
-    G = int(min(chunk_g, k_max))
-    n_pad = frames_r.shape[1]
-    t_pad = skip_t_pad(n_pad // tile)
-    ctr_pad = jnp.full((k_max + G,), -1, jnp.int32)
-    skc_pad = jnp.full((k_max + G,), -1, jnp.int32)
-    gidx0 = jnp.argmax(dist[0]).astype(jnp.int32)
-    md0 = dist[0, gidx0]
-    tmax0 = tile_summaries(dist, tile, t_pad)
-    ntot = jnp.full((1, 1), n_clusters, jnp.int32)
-    cut = jnp.full((1, 1), dist_cutoff, jnp.float32)
-
-    def cond(state):
-        i = state[0]
-        md = state[5]
-        return (i < n_clusters) & (md > dist_cutoff)
-
-    def step(state):
-        i, d, a, c, gidx, md, tmax, skc = state
-        d, a, ctrs, g2, m2, tmax, scnt = kcenters_chunk_skip_pallas(
-            frames_r, g, d, a, tmax,
-            jnp.reshape(gidx, (1, 1)).astype(jnp.int32),
-            jnp.reshape(md, (1, 1)).astype(jnp.float32),
-            jnp.reshape(i, (1, 1)).astype(jnp.int32), ntot, cut,
-            G, n_atoms_real, interpret=interpret, tile=tile)
-        placed = jnp.sum(ctrs[:, 0] != -1).astype(jnp.int32)
-        c = jax.lax.dynamic_update_slice(c, ctrs[:, 0], (i,))
-        skc = jax.lax.dynamic_update_slice(skc, scnt[:, 0], (i,))
-        return (i + placed, d, a, c, g2[0, 0], m2[0, 0], tmax, skc)
-
-    init = (jnp.asarray(n_start, jnp.int32), dist, assig, ctr_pad,
-            gidx0, md0, tmax0, skc_pad)
-    out = jax.lax.while_loop(cond, step, init)
-    i, d, a, c = out[0], out[1], out[2], out[3]
-    return d, a, c[:k_max], i, out[7][:k_max]
-
-
-def _kcenters_loop_fused_sharded(frames_r, g, dist, assig, n_start,
-                                 n_clusters, dist_cutoff, k_max,
-                                 n_atoms_real, mesh, interpret, tile,
-                                 tri_skip=True):
-    """Multi-chip fused k-centers: each shard runs the Pallas iteration
-    kernel on its local frames; the per-iteration argmax and the
-    center-frame broadcast are explicit mesh collectives — the same
-    choreography the reference hand-writes in MPI
-    (enspara/cluster/kcenters.py:314-378: allgather of local max/argmax
-    + Bcast of the winning frame), here riding ICI.
-
-    With ``tri_skip`` (default) each shard runs the per-iteration
-    tile-skip kernel: the Gonzalez bound holds GLOBALLY (every
-    existing center is >= the global md from the new one), so a local
-    tile whose max cached distance is <= md/2 skips its frame DMA no
-    matter which shard owns the new center — multi-chip gets the same
-    basin-data stream savings as the single-chip chunk path.
-
-    Inputs are sharded on their last (frame) axis; ties break toward
-    the smallest global index, matching the serial ``np.argmax``.
-    """
-    from ..ops.kcenters_skip_pallas import (
-        kcenters_iteration_skip_pallas, skip_t_pad, tile_summaries)
-    from ..ops.qcp_update_pallas import kcenters_iteration_pallas
-
-    def body(frames_l, g_l, dist_l, assig_l):
-        rows, n_local = frames_l.shape
-        a_pad = rows // 3
-        ctr_inds = jnp.full((k_max,), -1, jnp.int32)
-        imax = jnp.iinfo(jnp.int32).max
-
-        def global_best(d):
-            # same tie-break contract as parallel.ops.global_argmax
-            # (smallest global index among maxima = serial np.argmax);
-            # kept inline because the engine's arrays are frame-MINOR
-            # (1, n_local) columns, not the (n_local,) rows that
-            # helper takes — change one, check the other
-            la = jnp.argmax(d[0]).astype(jnp.int32)
-            lv = d[0, la]
-            start = (jax.lax.axis_index(FRAME_AXIS) * n_local) \
-                .astype(jnp.int32)
-            vals = jax.lax.all_gather(lv, FRAME_AXIS)
-            args = jax.lax.all_gather(start + la, FRAME_AXIS)
-            best = jnp.max(vals)
-            gidx = jnp.min(jnp.where(vals == best, args, imax))
-            return best, gidx
-
-        md0, gidx0 = global_best(dist_l)
-        t_pad = skip_t_pad(n_local // tile)
-        tmax0 = tile_summaries(dist_l, tile, t_pad)
-
-        def cond(state):
-            i, md = state[0], state[5]
-            return (i < n_clusters) & (md > dist_cutoff)
-
-        def step(state):
-            i, d, a, ctrs, gidx, md, tmax = state
-            ctrs = ctrs.at[i].set(gidx)
-            # owner-masked slice + psum = Bcast of the center column
-            start = (jax.lax.axis_index(FRAME_AXIS) * n_local) \
-                .astype(jnp.int32)
-            owned = (gidx >= start) & (gidx < start + n_local)
-            lidx = jnp.clip(gidx - start, 0, n_local - 1)
-            col = jax.lax.dynamic_slice(frames_l, (0, lidx), (rows, 1))
-            col = jax.lax.psum(jnp.where(owned, col, 0.0), FRAME_AXIS)
-            gb_l = jax.lax.dynamic_slice(g_l, (0, lidx), (1, 1))
-            gb = jax.lax.psum(jnp.where(owned, gb_l, 0.0), FRAME_AXIS)
-            cid = jnp.reshape(i, (1, 1)).astype(jnp.int32)
-            # the kernel epilogue accumulates this shard's (max,
-            # argmax) — no separate per-iteration argmax pass over the
-            # local distance row (the per-center fixed cost the chunk
-            # megakernel eliminated single-chip); only the two scalars
-            # cross the collective
-            if tri_skip:
-                d, a, tmax, lm, la, _ = kcenters_iteration_skip_pallas(
-                    frames_l, g_l, d, a, tmax,
-                    col.astype(jnp.float32), gb,
-                    cid, jnp.reshape(md, (1, 1)).astype(jnp.float32),
-                    n_atoms_real, interpret=interpret, tile=tile)
-            else:
-                cvec = col.reshape(3, a_pad).T
-                d, a, lm, la = kcenters_iteration_pallas(
-                    frames_l, g_l, d, a, cvec, gb, cid, n_atoms_real,
-                    interpret=interpret, tile=tile, with_argmax=True)
-            vals = jax.lax.all_gather(lm[0, 0], FRAME_AXIS)
-            args = jax.lax.all_gather(start + la[0, 0], FRAME_AXIS)
-            md2 = jnp.max(vals)
-            gidx2 = jnp.min(jnp.where(vals == md2, args, imax))
-            return (i + 1, d, a, ctrs, gidx2, md2, tmax)
-
-        init = (jnp.asarray(n_start, jnp.int32), dist_l, assig_l,
-                ctr_inds, gidx0, md0, tmax0)
-        i, d, a, ctrs = jax.lax.while_loop(cond, step, init)[:4]
-        return d, a, ctrs, i
-
-    fn = jax.jit(jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(P(None, FRAME_AXIS), P(None, FRAME_AXIS),
-                  P(None, FRAME_AXIS), P(None, FRAME_AXIS)),
-        out_specs=(P(None, FRAME_AXIS), P(None, FRAME_AXIS), P(), P()),
-        check_vma=False))
-    return fn(frames_r, g, dist, assig)
-
-
 class PreparedRMSDFrames(NamedTuple):
-    """Frames ingested once into the fused kernels' device layout.
+    """Frames ingested once into the RMSD k-centers layout.
 
     Build with :func:`prepare_rmsd_frames`; pass to
     :func:`kcenters_device_fused` in place of raw coordinates to
-    amortize the layout transform (transpose + pad + optional bf16
-    cast, ~1.5 GB of HBM traffic at 1M x 64 atoms) across clusterings
-    of the same dataset (warm starts, cutoff scans, khybrid rounds).
-
-    ``perm`` (``sort='locality'``) records the frame permutation of
-    the stored layout; :func:`kcenters_device_fused` transparently
-    maps results back to the caller's frame order.
+    amortize the ingest (centering, transpose, padding and the optional
+    bf16 cast) across clusterings of the same dataset (warm starts,
+    cutoff scans, khybrid rounds).
     """
-    frames_r: jax.Array        # (3*A_pad, n_pad) fp32 or bf16
-    g: jax.Array               # (1, n_pad) fp32
+    frames: jax.Array          # (3*n_atoms, n_pad) fp32 or bf16
+    g: jax.Array               # (n_pad,) fp32
     n: int                     # real frame count
-    n_atoms: int               # real atom count
-    tile: int
+    n_atoms: int
     n_shards: int
     precision: str
-    perm: object = None        # (n,) int64 layout order, or None
 
 
 _STREAM_CHUNK_BYTES = 64 * (1 << 20)
 
 
-@functools.partial(jax.jit, donate_argnums=(0, 1),
-                   static_argnames=('a_pad', 'precision'))
-def _ingest_chunk(frames_buf, g_buf, chunk, off, a_pad, precision):
-    """Center one coordinate chunk, derive its G row, and scatter both
-    into the prepared buffers at column ``off`` (traced, so every
-    chunk reuses one compiled program; donation keeps the big buffer
-    in place). Runs while the NEXT chunk's ``device_put`` is already
-    in flight — the double-buffered ingest pipeline measured at 1.54x
-    in benchmarks/ingest_probe.py."""
-    ch = chunk - jnp.mean(chunk, axis=1, keepdims=True)
+def _layout(ch, precision):
+    """Centered ``(m, A, 3)`` coordinates -> the ``(3*A, m)`` frame-minor
+    rows ``i*A + a`` and the per-frame G. For bf16 the coordinates are
+    rounded ONCE and G is derived from the rounded values, so G and the
+    inner products agree and self-distances stay ~0. The rounding is an
+    explicit ``reduce_precision``: a bare bf16 round trip may be kept
+    in fp32 inside a GPU fusion, which would give G from the unrounded
+    values."""
     if precision == 'bf16':
-        # round ONCE, then derive g from the rounded coordinates so G
-        # and S agree and self-distances stay ~0 (same contract as the
-        # monolithic path)
-        ch = ch.astype(jnp.bfloat16)
-        g_src = ch.astype(jnp.float32)
-    else:
-        g_src = ch
-    g_ch = jnp.sum(g_src * g_src, axis=(1, 2)).reshape(1, -1)
-    A = ch.shape[1]
-    ch_r = jnp.pad(jnp.transpose(ch, (2, 1, 0)),
-                   ((0, 0), (0, a_pad - A), (0, 0))) \
-        .reshape(3 * a_pad, ch.shape[0])
-    frames_buf = jax.lax.dynamic_update_slice(frames_buf, ch_r,
-                                              (0, off))
-    g_buf = jax.lax.dynamic_update_slice(g_buf, g_ch, (0, off))
+        ch = jax.lax.reduce_precision(ch, exponent_bits=8,
+                                      mantissa_bits=7)
+    g = jnp.sum(ch * ch, axis=(1, 2))
+    if precision == 'bf16':
+        ch = ch.astype(jnp.bfloat16)         # exact after the rounding
+    m, A = ch.shape[0], ch.shape[1]
+    return jnp.transpose(ch, (2, 1, 0)).reshape(3 * A, m), g
+
+
+@functools.partial(jax.jit, donate_argnums=(0, 1),
+                   static_argnames=('precision',))
+def _ingest_chunk(frames_buf, g_buf, chunk, off, precision):
+    """Center one coordinate chunk, lay it out, and write it and its G
+    into the prepared buffers at column ``off`` (traced, so every chunk
+    reuses one compiled program; donation keeps the big buffer in
+    place). Runs while the NEXT chunk's ``device_put`` is in flight."""
+    ch = chunk - jnp.mean(chunk, axis=1, keepdims=True)
+    ch_r, g_ch = _layout(ch, precision)
+    frames_buf = jax.lax.dynamic_update_slice(frames_buf, ch_r, (0, off))
+    g_buf = jax.lax.dynamic_update_slice(g_buf, g_ch, (off,))
     return frames_buf, g_buf
 
 
-@functools.partial(jax.jit, donate_argnums=(0,))
-def _fix_g_tail(g_buf, n):
-    # padding frames keep the monolithic path's g == 1.0 convention
-    # (their distances are -inf, so the value is inert either way)
-    idx = jax.lax.broadcasted_iota(jnp.int32, g_buf.shape, 1)
-    return jnp.where(idx >= n, 1.0, g_buf)
-
-
-def _prepare_rmsd_frames_streamed(X, n, A, A_pad, n_pad, precision):
-    """Chunked host->device ingest: decode/astype of chunk i+1 on the
-    host and its H2D copy overlap chunk i's on-device centering +
-    layout transform (async dispatch pipelines them — no explicit
-    threads needed). Numerically identical to the monolithic path.
+def _prepare_rmsd_frames_streamed(X, n, A, n_pad, precision):
+    """Chunked host->device ingest: the host copy of chunk i+1 and its
+    H2D transfer overlap chunk i's on-device centering and layout
+    transform (async dispatch pipelines them — no explicit threads).
+    Numerically identical to the monolithic path.
 
     The final chunk is truncated to the remaining PADDED length, never
     zero-padded past it: ``dynamic_update_slice`` CLAMPS out-of-bounds
     start indices, so a chunk reaching beyond ``n_pad`` would silently
-    shift backwards and overwrite earlier frames (r5 review finding —
-    the tail chunk costs one extra compiled shape instead)."""
+    shift backwards and overwrite earlier frames."""
     dtype = jnp.bfloat16 if precision == 'bf16' else jnp.float32
     cf = max(1, int(_STREAM_CHUNK_BYTES // (A * 3 * 4)))
-    frames_buf = jnp.zeros((3 * A_pad, n_pad), dtype)
-    g_buf = jnp.ones((1, n_pad), jnp.float32)
+    frames_buf = jnp.zeros((3 * A, n_pad), dtype)
+    g_buf = jnp.zeros((n_pad,), jnp.float32)
     for off in range(0, n, cf):
         cf_eff = min(cf, n_pad - off)
         hi = min(off + cf_eff, n)
@@ -782,248 +430,194 @@ def _prepare_rmsd_frames_streamed(X, n, A, A_pad, n_pad, precision):
                  np.zeros((cf_eff - (hi - off), A, 3), np.float32)])
         dev = jax.device_put(chunk)          # async H2D
         frames_buf, g_buf = _ingest_chunk(
-            frames_buf, g_buf, dev, jnp.int32(off), A_pad, precision)
-    return frames_buf, _fix_g_tail(g_buf, jnp.int32(n))
+            frames_buf, g_buf, dev, jnp.int32(off), precision)
+    return frames_buf, g_buf
 
 
-def _locality_sort(X):
-    """Reorder frames by a 1-pivot QCP-RMSD key (distance to frame 0)
-    so tiles become spatially coherent. Returns the sorted DEVICE
-    coordinates and the permutation (layout order -> original index).
-
-    Why: the tri-skip kernels elide a tile's DMA only when EVERY frame
-    in it sits below md/2 — temporally shuffled data (subsampled or
-    concatenated-and-shuffled trajectories) mixes basins within tiles
-    and kills the bound tile-wide. Measured at 1M x 64 x 1000 on
-    shuffled basin data: skip fraction 0.000 unsorted -> 0.100 sorted.
-    The covering is a DIFFERENT (equally valid, same Gonzalez
-    2-approximation) one than the unsorted run's, because the argmax
-    tie-break order changes — same caveat as random_first_center."""
-    data = _prepare_data(X, 'rmsd')
-    if not isinstance(data, jax.Array):
-        data = jnp.asarray(data)
-    data = _center_structures(data)
-    g_all = jnp.sum(data * data, axis=(1, 2))
-    key = qcp.qcp_rmsd_vector(data, data[0], g_all, g_all[0])
-    perm = jnp.argsort(key)
-    return data[perm], np.asarray(perm).astype(np.int64)
+@functools.partial(jax.jit, static_argnames=('n_pad', 'precision'))
+def _prepare_monolithic(data, n_pad, precision):
+    data = _center_structures(data.astype(jnp.float32))
+    data = jnp.pad(data, ((0, n_pad - data.shape[0]), (0, 0), (0, 0)))
+    return _layout(data, precision)
 
 
-def prepare_rmsd_frames(X, tile=None, mesh=None, precision='fp32',
-                        stream='auto', sort=None):
+def prepare_rmsd_frames(X, mesh=None, precision='fp32', stream='auto'):
     """One-time ingest of ``(n, n_atoms, 3)`` coordinates (host or
-    device) into the fused k-centers layout. See
+    device) into the RMSD k-centers layout. See
     :class:`PreparedRMSDFrames`.
 
-    ``stream='auto'`` (default) pipelines host inputs through chunked
-    ``device_put`` + on-device transform (H2D copy, centering and the
-    layout transpose overlap; ~1.5x faster ingest on a PCIe-class
-    link, benchmarks/ingest-probe-result.json) whenever the input is
-    a host array on a 1-shard mesh and spans multiple chunks;
-    ``stream=False`` forces the monolithic path.
-
-    ``sort='locality'`` reorders frames by a 1-pivot RMSD key before
-    layout (see :func:`_locality_sort`): temporally shuffled data
-    regains tri-skip DMA savings, at the cost of finding a different
-    — equally valid — Gonzalez covering. Results from
-    :func:`kcenters_device_fused` are mapped back to the caller's
-    frame order automatically."""
-    from ..ops.qcp_update_pallas import TILE_N
-
+    Frames are padded to a multiple of the kernel block times the mesh
+    size. ``stream='auto'`` (default) pipelines host inputs through
+    chunked ``device_put`` + on-device transform whenever the input is
+    a host array on a 1-device mesh and spans several chunks;
+    ``stream=False`` forces the monolithic path."""
     if precision not in ('fp32', 'bf16'):
         raise ValueError("precision must be 'fp32' or 'bf16', got %r"
                          % (precision,))
-    if sort not in (None, 'locality'):
-        raise ValueError("sort must be None or 'locality', got %r"
-                         % (sort,))
-    perm = None
-    pre_centered = False
-    if sort == 'locality':
-        # device array -> monolithic path below; already centered by
-        # the key computation, so don't pay a second centering pass
-        X, perm = _locality_sort(X)
-        pre_centered = True
-    n_shards = 1 if mesh is None else mesh.size
+    if mesh is None:
+        mesh = pmesh.frame_mesh()
+    n_shards = mesh.size
     if not isinstance(X, (np.ndarray, jax.Array)):
         X = np.asarray(X)
-    n = len(X)
     if X.ndim != 3 or X.shape[-1] != 3:
-        raise ValueError("prepare_rmsd_frames requires (n, n_atoms, 3)"
+        raise ValueError('prepare_rmsd_frames requires (n, n_atoms, 3)'
                          ' coordinates, got %s' % (X.shape,))
-    A = int(X.shape[1])
-    if tile is None:
-        A_pad_est = ((A + 7) // 8) * 8
-        cap = (64 * 1024 * 1024) // (2 * 4 * 3 * A_pad_est)
-        tile = int(min(TILE_N, max(256, (cap // 128) * 128)))
-
-    chunk = tile * n_shards
-    n_pad = ((n + chunk - 1) // chunk) * chunk
-    # bf16 blocks tile (16, 128): pad atoms to 16 so 3*A_pad tiles
-    a_mult = 16 if precision == 'bf16' else 8
-    A_pad = ((A + a_mult - 1) // a_mult) * a_mult
+    n, A = len(X), int(X.shape[1])
+    n_pad = pmesh.pad_to_multiple(max(n, 1), BLOCK * n_shards)
 
     stream_cf = _STREAM_CHUNK_BYTES // (A * 3 * 4)
-    if (stream in ('auto', True) and n_shards == 1
-            and not isinstance(X, jax.Array) and n > stream_cf):
-        frames_r, g = _prepare_rmsd_frames_streamed(
-            X, n, A, A_pad, n_pad, precision)
-        return PreparedRMSDFrames(frames_r, g, n, A, int(tile),
-                                  n_shards, precision, perm)
+    with jax.default_device(mesh.devices.flat[0]):
+        if (stream in ('auto', True) and n_shards == 1
+                and not isinstance(X, jax.Array) and n > stream_cf):
+            frames, g = _prepare_rmsd_frames_streamed(
+                X, n, A, n_pad, precision)
+        else:
+            frames, g = _prepare_monolithic(
+                jnp.asarray(X), n_pad, precision)
+    frames = jax.device_put(frames, NamedSharding(mesh, P(None,
+                                                          FRAME_AXIS)))
+    g = jax.device_put(g, NamedSharding(mesh, P(FRAME_AXIS)))
+    return PreparedRMSDFrames(frames, g, n, A, n_shards, precision)
 
-    data = _prepare_data(X, 'rmsd')
-    if not isinstance(data, jax.Array):
-        data = jnp.asarray(data)
-    if not pre_centered:
-        data = _center_structures(data)
 
-    if precision == 'bf16':
-        # round ONCE, then derive g (and the stream) from the rounded
-        # coordinates so G and S agree and self-distances stay ~0
-        data = data.astype(jnp.bfloat16)
-        g_src = data.astype(jnp.float32)
-    else:
-        g_src = data
-    g = jnp.pad(jnp.sum(g_src * g_src, axis=(1, 2)), (0, n_pad - n),
-                constant_values=1.0).reshape(1, -1)
-    # (n, A, 3) -> rows i*A_pad + a, frame axis minor: (3*A_pad, n)
-    frames_r = jnp.pad(jnp.transpose(data, (2, 1, 0)),
-                       ((0, 0), (0, A_pad - A), (0, n_pad - n))) \
-        .reshape(3 * A_pad, n_pad)
-    if n_shards > 1:
-        sh = NamedSharding(mesh, P(None, FRAME_AXIS))
-        frames_r = jax.device_put(frames_r, sh)
-        g = jax.device_put(g, sh)
-    return PreparedRMSDFrames(frames_r, g, n, A, int(tile), n_shards,
-                              precision, perm)
+def _iteration_xla(frames, g, dist, assig, center, g_center, center_id,
+                   n_atoms):
+    """The plain form of :func:`kcenters_iteration_triton` (same
+    arguments and results, one block): a frame-minor multiply-reduce
+    that XLA fuses, the same Newton epilogue, the min update and the
+    (max, argmax) of the updated distances."""
+    f = frames.reshape(3, n_atoms, -1).astype(jnp.float32)
+    c = center.reshape(3, n_atoms)
+    S = jnp.sum(f[:, None] * c[None, :, :, None], axis=2)   # (3, 3, n)
+    Sc = tuple(S[i, j] for i in range(3) for j in range(3))
+    d_new = qcp.rmsd_from_S_components_unrolled(Sc, g + g_center,
+                                                float(n_atoms))
+    upd = d_new < dist
+    nd = jnp.where(upd, d_new, dist)
+    na = jnp.where(upd, center_id, assig)
+    return (nd, na, jnp.max(nd)[None],
+            jnp.argmax(nd)[None].astype(jnp.int32))
+
+
+def _iteration_for(mesh):
+    """The fused iteration for the mesh's platform: the Triton kernel on
+    a GPU, its plain ``jax.numpy`` form on the CPU."""
+    return kcenters_iteration_triton if on_accelerator(mesh) \
+        else _iteration_xla
+
+
+@functools.partial(jax.jit,
+                   static_argnames=('k_max', 'n_atoms', 'mesh',
+                                    'iteration'))
+def _kcenters_loop_prepared(frames, g, dist, assig, n_start, n_clusters,
+                            dist_cutoff, k_max, n_atoms, mesh,
+                            iteration):
+    """k-centers while_loop over the prepared layout. Each shard runs
+    ``iteration`` on its local frames; the per-center argmax and the
+    center broadcast are explicit collectives — the reference's MPI
+    choreography (enspara/cluster/kcenters.py:314-378: allgather of the
+    local max/argmax + Bcast of the winning frame).
+
+    Ties break toward the smallest global index, matching the serial
+    ``np.argmax``.
+    """
+    def body(f_l, g_l, d_l, a_l, n_start, n_clusters, dist_cutoff):
+        rows, n_local = f_l.shape
+        start = (jax.lax.axis_index(FRAME_AXIS) * n_local) \
+            .astype(jnp.int32)
+
+        def global_best(vals, args):
+            # (max, first argmax) over every shard's candidates — the
+            # same tie-break contract as parallel.ops.global_argmax
+            vals = jax.lax.all_gather(vals, FRAME_AXIS).reshape(-1)
+            args = jax.lax.all_gather(start + args,
+                                      FRAME_AXIS).reshape(-1)
+            best = jnp.max(vals)
+            return best, jnp.min(jnp.where(vals == best, args, _IMAX))
+
+        def cond(state):
+            i, md = state[0], state[5]
+            return (i < n_clusters) & (md > dist_cutoff)
+
+        def step(state):
+            i, d, a, ctrs, gidx, _ = state
+            ctrs = ctrs.at[i].set(gidx)
+            # owner-masked slice + psum = Bcast of the center column
+            owned = (gidx >= start) & (gidx < start + n_local)
+            lidx = jnp.clip(gidx - start, 0, n_local - 1)
+            col = jax.lax.dynamic_slice(f_l, (0, lidx), (rows, 1))[:, 0]
+            col = jax.lax.psum(
+                jnp.where(owned, col.astype(jnp.float32), 0.0),
+                FRAME_AXIS)
+            gc = jax.lax.psum(jnp.where(owned, g_l[lidx], 0.0),
+                              FRAME_AXIS)
+            d, a, bmax, barg = iteration(f_l, g_l, d, a, col, gc, i,
+                                         n_atoms=n_atoms)
+            md, gidx = global_best(bmax, barg)
+            return (i + 1, d, a, ctrs, gidx, md)
+
+        md0, gidx0 = global_best(
+            jnp.max(d_l)[None], jnp.argmax(d_l)[None].astype(jnp.int32))
+        init = (n_start, d_l, a_l, jnp.full((k_max,), -1, jnp.int32),
+                gidx0, md0)
+        i, d, a, ctrs = jax.lax.while_loop(cond, step, init)[:4]
+        return d, a, ctrs, i
+
+    return jax.shard_map(
+        body, mesh=mesh,
+        in_specs=(P(None, FRAME_AXIS), P(FRAME_AXIS), P(FRAME_AXIS),
+                  P(FRAME_AXIS), P(), P(), P()),
+        out_specs=(P(FRAME_AXIS), P(FRAME_AXIS), P(), P()),
+        check_vma=False)(frames, g, dist, assig, n_start, n_clusters,
+                         dist_cutoff)
 
 
 def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
                           k_max=None, init_distances=None,
                           init_assignments=None, n_init_centers=0,
-                          init_center_indices=None, tile=None,
-                          interpret=None, mesh=None,
-                          precision=None, sort=None):
-    """Fused k-centers for metric='rmsd' (the fast path behind
-    :func:`kcenters_device` on TPU). Same result contract. With a
-    multi-device ``mesh`` the loop runs SPMD with explicit collectives
-    (:func:`_kcenters_loop_fused_sharded`). ``sort='locality'``
-    clusters a locality-sorted layout (tri-skip DMA savings on
-    shuffled data; a different, equally valid covering) — results are
-    mapped back to the caller's frame order.
+                          init_center_indices=None, mesh=None,
+                          precision=None):
+    """RMSD k-centers on the prepared layout (the path behind
+    :func:`kcenters_device` for ``metric='rmsd'``). Same result
+    contract. ``X`` is raw ``(n, n_atoms, 3)`` coordinates or a
+    :class:`PreparedRMSDFrames` laid out for ``mesh``.
 
-    ``precision='bf16'`` stores the frame stream in bfloat16 (the
-    kernels upconvert per block and keep all arithmetic fp32). The
-    loop is HBM-bandwidth-bound, so this roughly doubles throughput
-    and halves the frame footprint; distances pick up the coordinate
-    rounding (~4e-3 relative — RMSD values move by ~0.4%, far below
-    the conformational-clustering noise floor, but assignments are no
-    longer bit-identical to the fp32 path). Centering, G values and
-    the fp32 path are computed from the SAME rounded coordinates, so
-    self-distances stay ~0.
+    ``precision='bf16'`` stores the frames in bfloat16 (upcast on load;
+    all arithmetic fp32). The loop reads every frame once per center,
+    so this halves the bytes it moves and the frames' footprint. Each
+    centered coordinate is rounded to 2^-8 relative, which moves an
+    RMSD by at most 2^-8 times the sum of the two structures' RMS
+    extents (``sqrt(G / n_atoms)``): ~0.4% of the distance between far
+    structures, more of a small one, and assignments are no longer
+    bit-identical to the fp32 path. G values and the inner products
+    come from the SAME rounded coordinates, so self-distances stay ~0.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != 'tpu'
-
+    if mesh is None:
+        mesh = pmesh.frame_mesh()
     if isinstance(X, PreparedRMSDFrames):
         prep = X
-        expect = (1 if mesh is None else mesh.size)
-        if prep.n_shards != expect:
+        if prep.n_shards != mesh.size:
             raise ValueError('prepared frames were laid out for %d '
                              'shard(s), mesh has %d'
-                             % (prep.n_shards, expect))
-        if tile is not None and tile != prep.tile:
-            raise ValueError('prepared frames use tile=%d, got tile=%d'
-                             % (prep.tile, tile))
+                             % (prep.n_shards, mesh.size))
         if precision is not None and precision != prep.precision:
-            # an EXPLICIT mismatching request must not silently run
-            # at the prep's precision; the None default inherits from
-            # the prep (bf16-prepared frames work without repeating
-            # precision='bf16' at every call — ADVICE r4)
+            # an EXPLICIT mismatching request must not silently run at
+            # the prep's precision; the None default inherits it
             raise ValueError('prepared frames are %s, got precision=%s'
                              % (prep.precision, precision))
-        if sort is not None and prep.perm is None:
-            raise ValueError("sort='locality' applies at preparation "
-                             'time; these prepared frames are unsorted'
-                             " — rebuild with prepare_rmsd_frames(..., "
-                             "sort='locality')")
     else:
-        prep = prepare_rmsd_frames(X, tile=tile, mesh=mesh,
-                                   precision=precision or 'fp32',
-                                   sort=sort)
-    frames_r, g = prep.frames_r, prep.g
-    perm = None if prep.perm is None else np.asarray(prep.perm)
-    n, A, tile, n_shards = prep.n, prep.n_atoms, prep.tile, prep.n_shards
-    n_pad = frames_r.shape[1]
-    A_pad = frames_r.shape[0] // 3
-
-    if k_max is None:
-        k_max = int(n_clusters) if n_clusters is not None else n
-    k_max = int(min(k_max, n))
-    n_clusters_eff = np.int32(min(n_clusters or n, k_max))
-    cutoff_eff = np.float32(dist_cutoff if dist_cutoff is not None
-                            else 0.0)
-
-    dist = np.full((1, n_pad), np.inf, np.float32)
-    assig = np.full((1, n_pad), -1, np.int32)
-    if init_distances is not None:
-        # warm-start state arrives in the caller's frame order; the
-        # layout may be locality-sorted
-        if perm is not None:
-            dist[0, :n] = np.asarray(init_distances)[perm]
-            assig[0, :n] = np.asarray(init_assignments)[perm]
-        else:
-            dist[0, :n] = init_distances
-            assig[0, :n] = init_assignments
-    dist[0, n:] = NEG_INF
-
-    if n_shards > 1:
-        sh = NamedSharding(mesh, P(None, FRAME_AXIS))
-        d, a, c, n_found = _kcenters_loop_fused_sharded(
-            frames_r, g, jax.device_put(jnp.asarray(dist), sh),
-            jax.device_put(jnp.asarray(assig), sh),
-            np.int32(n_init_centers), n_clusters_eff, cutoff_eff,
-            k_max, A, mesh, bool(interpret), int(tile))
-    elif (n_pad * 12 + 16 * 3 * A_pad * int(tile)) <= 96 * 1024 * 1024:
-        # tri-skip megakernel: the (1, n) dist+assig+g state lives in
-        # VMEM for whole chunk launches (gated on fitting alongside
-        # the frame buffers) and tiles provably inert under the
-        # Gonzalez bound skip their frame DMA. Measured >= the plain
-        # megakernel in EVERY regime (1.00x concentrated data, 1.11x
-        # basin data at 1M x 64 x 1000 — benchmarks/triskip-ablation-
-        # result.json), bit-identical results, so it is the
-        # unconditional default
-        d, a, c, n_found, _ = _kcenters_loop_megafused_skip(
-            frames_r, g, jnp.asarray(dist), jnp.asarray(assig),
-            np.int32(n_init_centers), n_clusters_eff, cutoff_eff,
-            k_max, A, interpret=bool(interpret), tile=int(tile))
-    elif (n_pad * 8 + 16 * 3 * A_pad * int(tile)) <= 96 * 1024 * 1024:
-        # the skip variant also keeps g in VMEM (12 bytes/frame of
-        # state vs 8): frame counts that only fit the leaner budget
-        # run the plain megakernel
-        d, a, c, n_found = _kcenters_loop_megafused(
-            frames_r, g, jnp.asarray(dist), jnp.asarray(assig),
-            np.int32(n_init_centers), n_clusters_eff, cutoff_eff,
-            k_max, A, interpret=bool(interpret), tile=int(tile))
-    else:
-        d, a, c, n_found = _kcenters_loop_fused(
-            frames_r, g, jnp.asarray(dist), jnp.asarray(assig),
-            np.int32(n_init_centers), n_clusters_eff, cutoff_eff,
-            k_max, A, interpret=bool(interpret), tile=int(tile))
-
-    dists = pmesh.host_fetch(d)[0, :n].astype(np.float64)
-    assigs = pmesh.host_fetch(a)[0, :n].astype(np.int64)
-    n_found = int(pmesh.host_fetch(n_found))
-    ctr_inds = pmesh.host_fetch(c)[:n_found].astype(np.int64)
-    if perm is not None:
-        # map results back to the caller's frame order: position i of
-        # the layout is original frame perm[i]
-        dists_o = np.empty_like(dists)
-        assigs_o = np.empty_like(assigs)
-        dists_o[perm] = dists
-        assigs_o[perm] = assigs
-        dists, assigs = dists_o, assigs_o
-        placed = ctr_inds >= 0
-        ctr_inds[placed] = perm[ctr_inds[placed]]
-    if init_center_indices is not None:
-        ctr_inds[:n_init_centers] = init_center_indices
-    return KCentersDeviceResult(dists, assigs, ctr_inds, n_found)
+        prep = prepare_rmsd_frames(X, mesh=mesh,
+                                   precision=precision or 'fp32')
+    n = prep.n
+    k_max, n_clusters_eff, cutoff_eff = _loop_limits(
+        n, n_clusters, dist_cutoff, k_max)
+    dist, assig = _init_state(n, prep.frames.shape[1], init_distances,
+                              init_assignments)
+    sh = NamedSharding(mesh, P(FRAME_AXIS))
+    d, a, c, n_found = _kcenters_loop_prepared(
+        prep.frames, prep.g, jax.device_put(dist, sh),
+        jax.device_put(assig, sh), np.int32(n_init_centers),
+        n_clusters_eff, cutoff_eff, k_max=k_max, n_atoms=prep.n_atoms,
+        mesh=mesh, iteration=_iteration_for(mesh))
+    return _result(d, a, c, n_found, n, n_init_centers,
+                   init_center_indices)

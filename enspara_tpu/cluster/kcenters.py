@@ -4,18 +4,6 @@
 the device mesh as one jitted while_loop (see
 :mod:`enspara_tpu.cluster.engine`); user-supplied callable metrics fall
 back to a host loop with the reference's exact semantics.
-
-The reference's optional triangle-inequality distance skip (Zhao et
-al. 2013; enspara/cluster/kcenters.py:287-296) is reproduced at TILE
-granularity rather than per frame: per-LANE pruning saves nothing on
-a lockstep SIMD machine, but the fused kernels are HBM-stream-bound,
-so when EVERY frame of a tile is provably inert under the Gonzalez
-bound the tile's frame-block DMA is skipped outright
-(:mod:`enspara_tpu.ops.kcenters_skip_pallas`, the default device
-path — bit-identical results, up to 11% faster on metastable-basin
-data, free on data where the bound never fires). ``sort='locality'``
-restores the savings on temporally shuffled data by reordering frames
-at ingest (a different, equally valid covering).
 """
 
 import logging
@@ -53,15 +41,16 @@ class KCenters(util.MolecularClusterMixin):
     mesh : jax Mesh, optional
         Device mesh to shard frames over (default: all devices).
     precision : 'fp32' (default) or 'bf16'
-        'bf16' streams frames as bfloat16 through the fused TPU
-        kernels (metric='rmsd' on TPU only): ~2x frame capacity per
-        chip at ~4e-3 relative distance rounding — a TPU-native knob
-        with no reference equivalent (see engine.kcenters_device).
+        'bf16' stores frames as bfloat16 in the device loop
+        (metric='rmsd' only): half the frame footprint, with distances
+        rounded by up to 2^-8 of the structures' RMS extents — a knob
+        with no reference equivalent (see
+        engine.kcenters_device_fused).
     """
 
     def __init__(self, metric, n_clusters=None, cluster_radius=None,
                  random_first_center=False, random_state=None, mesh=None,
-                 precision='fp32', sort=None):
+                 precision='fp32'):
         if n_clusters is None and cluster_radius is None:
             raise ImproperlyConfigured(
                 'Either n_clusters or cluster_radius is required for '
@@ -73,7 +62,6 @@ class KCenters(util.MolecularClusterMixin):
         self.random_state = random_state
         self.mesh = mesh
         self.precision = precision
-        self.sort = sort
 
     def fit(self, X, init_centers=None):
         conf = self.get_params()
@@ -89,7 +77,7 @@ class KCenters(util.MolecularClusterMixin):
                 'cluster_radius': self.cluster_radius,
                 'random_first_center': self.random_first_center,
                 'random_state': self.random_state, 'mesh': self.mesh,
-                'precision': self.precision, 'sort': self.sort}
+                'precision': self.precision}
 
     def set_params(self, **params):
         for k, v in params.items():
@@ -100,8 +88,7 @@ class KCenters(util.MolecularClusterMixin):
 @cite('kcenters')
 def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
              init_centers=None, random_first_center=False,
-             random_state=None, mesh=None, precision='fp32',
-             sort=None):
+             random_state=None, mesh=None, precision='fp32'):
     """Functional k-centers (reference: cluster/kcenters.py:108).
 
     Returns a :class:`~enspara_tpu.cluster.util.ClusterResult` whose
@@ -131,7 +118,7 @@ def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
         # (None/int/RandomState/Generator) like hybrid/kmedoids do —
         # default_rng alone rejects RandomState instances (ADVICE r4)
         if isinstance(random_state, np.random.RandomState):
-            from sklearn.utils import check_random_state
+            from ..util.rng import check_random_state
             first = int(check_random_state(random_state)
                         .randint(len(xyz)))
         else:
@@ -142,12 +129,7 @@ def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
 
     if metric_name is not None:
         return _kcenters_fast(xyz, metric_name, n_clusters, dist_cutoff,
-                              init_centers, mesh, precision=precision,
-                              sort=sort)
-    if sort is not None:
-        raise ImproperlyConfigured(
-            "sort='locality' requires a built-in metric on the device "
-            'path (callable metrics run on the host)')
+                              init_centers, mesh, precision=precision)
     if precision != 'fp32':
         raise ImproperlyConfigured(
             "precision='bf16' requires a built-in metric on the device "
@@ -166,7 +148,7 @@ def kcenters_mpi(traj, distance_method, **kwargs):
 
 
 def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
-                   mesh, precision='fp32', sort=None):
+                   mesh, precision='fp32'):
     n_init = 0
     init_distances = init_assignments = init_ctr_inds = None
     init_center_data = []
@@ -198,7 +180,7 @@ def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
         X, metric=metric, n_clusters=n_clusters, dist_cutoff=dist_cutoff,
         init_distances=init_distances, init_assignments=init_assignments,
         n_init_centers=n_init, init_center_indices=init_ctr_inds,
-        mesh=mesh, precision=precision, sort=sort)
+        mesh=mesh, precision=precision)
 
     ctr_inds = list(res.center_indices)
     if n_init:

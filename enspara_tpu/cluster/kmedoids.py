@@ -12,19 +12,12 @@ kernels. This preserves the reference's exact update semantics (the
 import logging
 
 import numpy as np
-from sklearn.utils import check_random_state
 
 from ..exception import ImproperlyConfigured, DataInvalid
+from ..util.backend import on_accelerator
+from ..util.rng import check_random_state
 from . import util
 from .util import run_timed
-
-
-def _tpu_present():
-    try:
-        import jax
-        return jax.default_backend() == 'tpu'
-    except Exception:
-        return False
 
 logger = logging.getLogger(__name__)
 
@@ -183,8 +176,9 @@ def _kmedoids_iterations(X, metric, n_iters, cluster_center_inds,
 
     ``backend='auto'`` runs the sweeps fully on device
     (engine_kmedoids.kmedoids_sweeps_device — one jit for ALL sweeps,
-    no per-proposal dispatches) when a TPU is present, the metric is a
-    named device metric, and no explicit proposals were given; the
+    no per-proposal dispatches) when the work runs on an accelerator,
+    the metric is a named device metric, and no explicit proposals
+    were given; the
     host path (bit-matched to the reference's PAM choreography) is
     used otherwise or with ``backend='host'``. The two paths draw
     proposals from different PRNGs, so they are statistically — not
@@ -197,10 +191,9 @@ def _kmedoids_iterations(X, metric, n_iters, cluster_center_inds,
     use_device = (backend == 'device'
                   or (backend == 'auto' and proposals is None
                       and metric_name is not None
-                      and _tpu_present()))
+                      and on_accelerator()))
     if use_device and metric_name is not None:
         from .engine_kmedoids import kmedoids_sweeps_device
-        from sklearn.utils import check_random_state
 
         rs = check_random_state(random_state)
         # the device engine consumes coordinate arrays; Trajectory

@@ -21,7 +21,7 @@ class DataInvalid(EnsparaTPUError):
 
 
 class InsufficientResourceError(EnsparaTPUError):
-    """Not enough host RAM / device HBM / devices to run the request."""
+    """Not enough host RAM / device memory / devices to run the request."""
 
 
 class ConvergenceWarning(UserWarning):

@@ -106,7 +106,7 @@ def rotamers_device(angles, hard_boundaries, buffer_width=15,
     The hysteresis recurrence has a tiny state space (2-3 basins), so
     each frame's update is a FUNCTION over basins — and function
     composition is associative. Instead of a sequential ``lax.scan``
-    over frames (~20 us/step on TPU), we build the per-frame
+    over frames (a dependent step per frame), we build the per-frame
     transition maps ``m_t[s]`` vectorized and combine them with
     ``lax.associative_scan`` (O(log T) passes of a tiny gather) —
     ~400x faster at 200k frames. Frames are processed in ``chunk``
@@ -151,7 +151,7 @@ def rotamers_device(angles, hard_boundaries, buffer_width=15,
         The basin axis S leads (S, t, F): with S minormost the arrays
         would tile-pad 3 -> 128 lanes (42x traffic on every scan
         level). Composition is a select chain over the S planes —
-        pure elementwise VPU work on dense (t, F) tiles.
+        pure elementwise work on dense (t, F) tiles.
         """
         ac = jnp.asarray(ac, jnp.float32)
         a3 = ac[None, :, :]                          # (1, t, F)

@@ -2,7 +2,7 @@
 
 The reference reaches SASA through mdtraj's C implementation
 (enspara/info_theory/exposons.py:76 ``md.shrake_rupley``). Here the
-algorithm runs on TPU: per atom, a golden-spiral point shell of radius
+algorithm runs on the device: per atom, a golden-spiral point shell of radius
 (r_vdw + probe); a point is accessible when no other atom's inflated
 sphere covers it. The occlusion test for all (atom, point, other-atom)
 triples is a batched distance computation — large, regular, and

@@ -11,7 +11,6 @@ publication's behavior).
 import logging
 
 import numpy as np
-from sklearn.cluster import AffinityPropagation
 
 from .. import exception
 from ..citation import cite
@@ -57,6 +56,8 @@ def exposons_from_sasas(sasas, damping, weights, threshold):
     # behavior at publication time; also makes results deterministic)
     ap_params = dict(affinity='precomputed', damping=damping,
                      preference=0, random_state=0, max_iter=10000)
+    from sklearn.cluster import AffinityPropagation
+
     labels = AffinityPropagation(**ap_params).fit_predict(mi_mtx)
 
     return mi_mtx, labels

@@ -1,12 +1,12 @@
 """Joint-count histogram kernels — the CARDS hot loop.
 
-TPU-native replacement of the reference's Cython+OpenMP histograms
+Device replacement of the reference's Cython+OpenMP histograms
 (enspara/info_theory/libinfo.pyx:30,50): the 4-D joint-count tensor
 ``jc[f1, f2, s1, s2]`` is computed as ONE one-hot matmul per time chunk,
 
     jc = (onehot(a) over (T, Fa*n_a)).T @ (onehot(b) over (T, Fb*n_b))
 
-so the O(Fa*Fb*T) accumulation rides the MXU instead of an OpenMP loop.
+so the O(Fa*Fb*T) accumulation is a matrix product instead of an OpenMP loop.
 (The formulation is the one the reference itself uses for weighted MI,
 mutual_info.py:149-153.) Counts are accumulated chunk-wise in fp32
 (exact below 2^24 per chunk) and summed into int64 on the host, lifting
@@ -43,7 +43,7 @@ def matrix_bincount2d(a, b, n_a, n_b, mesh=None):
     With ``mesh`` (a 1-D ``jax.sharding.Mesh``), each chunk's time axis
     is sharded across the mesh: the one-hot matmul contracts over the
     sharded axis, so GSPMD lowers it to per-chip partial products plus
-    one psum over ICI — the multi-chip form of the reference's
+    one psum across devices — the multi-device form of the reference's
     MPI-pooled feature loops (info_theory/mutual_info.py pools).
 
     Returns an (Fa, Fb, n_a, n_b) uint32 (int64 if counts overflow).
@@ -84,10 +84,11 @@ def matrix_bincount2d(a, b, n_a, n_b, mesh=None):
 
 
 def _chunk_counts_impl(ac, bc, n_a, n_b):
-    # one-hot values are exactly 0.0/1.0 in bf16 and the MXU
-    # accumulates in fp32 (exact for chunk counts < 2^24), so
-    # bf16 inputs give exact integer counts in a single MXU pass
-    # at half the HBM traffic of fp32 operands. Out-of-range states
+    # one-hot values are exactly 0.0/1.0 in bf16 and the product
+    # accumulates in fp32 (exact for chunk counts < 2^24), so bf16
+    # inputs give exact integer counts in one pass at half the memory
+    # traffic of fp32 operands. No precision argument is needed: 0/1
+    # operands are exact in every matmul mode, TF32 included. Out-of-range states
     # (the mesh path's padding) one-hot to all-zero rows and
     # contribute nothing.
     import jax

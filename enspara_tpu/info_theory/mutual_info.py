@@ -172,7 +172,7 @@ def weighted_mi(features, weights, n_feature_states=None, normalize=True):
     # log-ratio amplifies even ~1e-6 joint-probability rounding on
     # near-independent pairs). The fp32 device matmul engages only at
     # scales where the dense (T, F, s) einsum is impractical — there
-    # the rounding is scientifically irrelevant and the one-hot MXU
+    # the rounding is scientifically irrelevant and the one-hot matmul
     # pass is the only tractable route.
     P_joint = None
     if features.size * s_max >= (1 << 22):

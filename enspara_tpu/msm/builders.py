@@ -6,7 +6,7 @@ Capability parity with enspara/msm/builders.py (estimators: ``mle``,
 helpers so every estimator is polymorphic over scipy sparse types and
 ndarrays: whatever container goes in comes back out.
 
-``mle_device`` is the TPU-side Jacobi reformulation of the Prinz MLE:
+``mle_device`` is the device-side Jacobi reformulation of the Prinz MLE:
 every (i, j) pair updates from the current row sums simultaneously
 (vectorized over the whole matrix), converging to the same
 detailed-balance fixed point as the sequential Gauss-Seidel kernel.
@@ -137,7 +137,7 @@ def mle_device(C, prior_counts=None, calculate_eq_probs=True,
     simultaneously from the current row sums, then row sums refreshed
     exactly — a fixed-point iteration with the same detailed-balance
     stationary point as the Gauss-Seidel kernel, but fully vectorized for
-    the VPU. Roughly O(n^2) per sweep with no sequential dependence.
+    the device. Roughly O(n^2) per sweep with no sequential dependence.
 
     Returns the same (C, T, eq) triple as :func:`mle`.
     """

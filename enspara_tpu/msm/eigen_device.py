@@ -3,7 +3,7 @@
 A reversible T (detailed balance against pi, as produced by the
 ``transpose`` and ``mle`` builders) is similar to the symmetric matrix
 ``S = D^{1/2} T D^{-1/2}`` with ``D = diag(pi)``, so its spectrum is
-real and computable with the TPU-supported symmetric eigensolver
+real and computable with the device's symmetric eigensolver
 (``jnp.linalg.eigh``); for large sparse problems LOBPCG iterates only
 matvecs. Left eigenvectors of T recover as ``phi_i = D^{1/2} u_i``.
 
@@ -20,6 +20,7 @@ import numpy as np
 import scipy.sparse
 import scipy.sparse.linalg  # bind the submodule explicitly (eigsh below)
 
+from ..util.backend import on_accelerator
 from .transition_matrices import eigenspectrum as _eigenspectrum_host
 
 __all__ = ['eigenspectrum_reversible', 'implied_timescales_device',
@@ -57,7 +58,7 @@ def eigenspectrum_reversible(T, pi=None, n_eigs=None, method='auto',
     n_eigs : number of leading eigenpairs (default: all).
     method : 'auto' | 'eigh' | 'arpack' | 'filtered' ('lobpcg' is a
         back-compat alias for 'filtered'). 'auto' picks the dense
-        device eigh while n^2 fits HBM; past that, sparse k << n
+        device eigh while n^2 fits device memory; past that, sparse k << n
         spectra go to the device Chebyshev-filtered subspace solver
         when an accelerator backend is present, and to host ARPACK
         Lanczos on CPU-only hosts (where scipy's fp64 SpMV beats an
@@ -109,26 +110,16 @@ def eigenspectrum_reversible(T, pi=None, n_eigs=None, method='auto',
             method = 'eigh'
 
     if method == 'auto':
-        # Dense device eigh wins while n^2 fits HBM comfortably. Past
-        # that, sparse k << n spectra: the device Chebyshev-filtered
-        # subspace solver (in-jit ELL SpMM sweeps + host fp64 polish)
-        # is the measured winner on real chips at the 10^5-state
-        # point — 100k states/1.4M nnz top-21 in ~8-12 s warm on one
-        # v5e with residual certificates vs 16.5 s host ARPACK on the
-        # same host (benchmarks/scale-points-tpu-result.json). The
-        # upper bound is set by the round-4 boundary probe
-        # (benchmarks/eig-boundary-tpu-result.json): host ARPACK wins
-        # at 150k (10.6 s vs 20.4 s) and 200k (19.6 s vs 25.3 s) and
-        # ties at 300k, because the device ELL SpMM hits the XLA
-        # gather wall (~1e8 row gathers/s; gather-wall-result.json —
-        # contested head-on and conceded with data in
-        # pallas-spmm-tpu-result.json) while the fp64 host polish is
-        # BLAS-bound at the grown block width. On CPU-only hosts the
-        # fp32 'device' filter buys nothing over scipy's fp64 SpMV,
-        # so ARPACK Lanczos (the reference's engine) keeps that
-        # regime too.
+        # Dense device eigh while n^2 fits device memory comfortably.
+        # Past that, sparse k << n spectra go to the device
+        # Chebyshev-filtered subspace solver (in-jit ELL SpMM sweeps +
+        # host fp64 polish) on an accelerator, up to 131072 states,
+        # the bound carried over from the first measurements and not
+        # yet re-measured on a GPU. On CPU-only hosts the fp32
+        # 'device' filter buys nothing over scipy's fp64 SpMV, so
+        # ARPACK Lanczos (the reference's engine) keeps that regime.
         if sparse_in and 4096 < n <= 131_072 and n_eigs < n // 8 \
-                and _accelerator_present():
+                and on_accelerator():
             method = 'filtered'
         elif sparse_in and n > 4096 and n_eigs < n // 8:
             method = 'arpack'
@@ -156,7 +147,7 @@ def eigenspectrum_reversible(T, pi=None, n_eigs=None, method='auto',
         if sparse_in:
             # the similarity transform D T D^-1 is value-local: scale
             # the COO triplets on host (O(nnz)) and scatter dense in
-            # HBM — no host n^2 passes, no dense upload
+            # device memory — no host n^2 passes, no dense upload
             from ..ops.sparse import dense_on_device
             Sd = dense_on_device(T, scale_rows=sqrt_pi,
                                  scale_cols=1.0 / sqrt_pi)
@@ -230,14 +221,12 @@ def _transpose_tail_fn(n, k):
 
 def transpose_timescales_device(counts, n_eigs, lag_time=1):
     """Device-resident implied-timescales tail for the transpose
-    builder: ``counts`` (host or HBM-resident, dense (n, n)) ->
+    builder: ``counts`` (host or device-resident, dense (n, n)) ->
     symmetrized row-stochastic T -> equilibrium pi -> top ``n_eigs``
     left eigenpairs -> implied timescales, computed as ONE jitted
-    device program. Only the k modes cross the device link — at
-    n=1000, k=21 the full host round trip (8 MB counts fetch + host
-    builder + 4 MB symmetrized-matrix upload + 4 MB eigenvector
-    fetch) was ~5x the wall time of this fused form on a remote
-    v5e link.
+    device program. Only the k modes come back to the host, instead
+    of an 8 MB counts fetch, a host builder, a 4 MB upload of the
+    symmetrized matrix and a 4 MB eigenvector fetch at n=1000.
 
     Returns ``(timescales, vals, left_vecs)`` with vals descending and
     ``left_vecs[:, 0]`` the equilibrium populations.
@@ -256,32 +245,20 @@ def transpose_timescales_device(counts, n_eigs, lag_time=1):
     return timescales, w, phi
 
 
-def _accelerator_present():
-    """True when the default jax backend is a real accelerator (not a
-    host-platform CPU mesh) — gates the auto-dispatch to the device
-    filtered solver."""
-    import jax
-    try:
-        return jax.default_backend() not in ('cpu',)
-    except Exception:
-        return False
-
-
 @functools.lru_cache(maxsize=16)
 def _filter_sweep_fn(n, w_ell, k, use_ell, use_qr=False):
     """One jitted filtered-subspace sweep, cached per shape: Chebyshev
     filter of traced degree on the unwanted interval ``[-1, b]``,
     shifted-CholeskyQR3 re-orthonormalization, and an on-device
     Rayleigh-Ritz with per-mode residual norms. Everything stays in
-    fp32 HBM; only the (k,) Ritz values and residuals cross back to
+    fp32 device memory; only the (k,) Ritz values and residuals cross back to
     the host per sweep.
 
-    CholeskyQR instead of Householder QR is a deliberate TPU choice on
-    BOTH axes of cost: at runtime it is GEMM-only (2 (n,k) gemms +
-    one k x k Cholesky + a triangular solve per pass — MXU food),
-    and at compile time it lowers to a handful of ops where blocked
-    Householder QR lowers to a large loopy program (the dominant term
-    of the 337 s cold compile this replaced). Three passes (first one
+    CholeskyQR instead of Householder QR on BOTH axes of cost: at
+    runtime it is GEMM-only (2 (n,k) gemms + one k x k Cholesky + a
+    triangular solve per pass), and at compile time it lowers to a
+    handful of ops where blocked Householder QR lowers to a large
+    loopy program that dominated the cold compile. Three passes (first one
     shifted, Fukaya et al.-style) keep orthonormality at the fp32
     floor for block condition numbers up to ~1e6 — and the driver
     bounds the per-sweep filter amplification to about that. Set
@@ -295,13 +272,17 @@ def _filter_sweep_fn(n, w_ell, k, use_ell, use_qr=False):
 
     from ..ops.sparse import ell_spmm
 
+    # full fp32 products: a GPU would otherwise take TF32 (~3 digits),
+    # above the filter's 5e-6 residual target
+    mm = functools.partial(jnp.matmul, precision=lax.Precision.HIGHEST)
+
     def _orth(V):
         if use_qr:
             return jnp.linalg.qr(V)[0]
         eye = jnp.eye(V.shape[1], dtype=V.dtype)
 
         def chol_pass(V, shift):
-            G = V.T @ V
+            G = mm(V.T, V)
             if shift:
                 G = G + (shift * jnp.trace(G) / V.shape[1]) * eye
             L = jnp.linalg.cholesky(G)
@@ -319,7 +300,7 @@ def _filter_sweep_fn(n, w_ell, k, use_ell, use_qr=False):
                 return ell_spmm(cols, vals, X)
         else:
             def spmm(X):
-                return cols @ X       # BCOO operand rides `cols`
+                return mm(cols, X)    # BCOO operand rides `cols`
         e = (b + 1.0) * 0.5           # filter half-width
         c = (b - 1.0) * 0.5           # filter center
         Vp = V
@@ -333,11 +314,11 @@ def _filter_sweep_fn(n, w_ell, k, use_ell, use_qr=False):
         _, Vc = lax.fori_loop(0, degree - 1, body, (Vp, Vc))
         Q = _orth(Vc)
         SQ = spmm(Q)
-        H = Q.T @ SQ
+        H = mm(Q.T, SQ)
         w_r, Z = jnp.linalg.eigh((H + H.T) * 0.5)   # ascending
         w_r, Z = w_r[::-1], Z[:, ::-1]
-        Vr = Q @ Z
-        res = jnp.linalg.norm(SQ @ Z - Vr * w_r[None, :], axis=0)
+        Vr = mm(Q, Z)
+        res = jnp.linalg.norm(mm(SQ, Z) - Vr * w_r[None, :], axis=0)
         return Vr, w_r, res
 
     return sweep
@@ -349,7 +330,7 @@ def _filtered_subspace_device(S, n_eigs, tol=5e-6, max_sweeps=24):
     residual floor. Returns the (n, k_block) fp64 host basis for the
     fp64 refinement stage, plus a telemetry dict.
 
-    TPU-first design: the O(sweeps * degree * nnz * k) filter work —
+    Device-first design: the O(sweeps * degree * nnz * k) filter work —
     99% of the flops — runs as ELL-form SpMMs (w row gathers, no
     scatters) chained inside ONE jitted sweep; QR and Rayleigh-Ritz
     also stay on device, so per sweep only 2k floats return to host.
@@ -391,7 +372,7 @@ def _filtered_subspace_device(S, n_eigs, tol=5e-6, max_sweeps=24):
         cols_d, vals_d = jnp.asarray(cols_h), jnp.asarray(vals_h)
         w_ell = int(cols_d.shape[1])
     else:
-        # hub-dominated graph: ELL padding would blow HBM; use BCOO
+        # hub-dominated graph: ELL padding would blow device memory; use BCOO
         from jax.experimental import sparse as jsparse
         cols_d = jsparse.BCOO.from_scipy_sparse(S.astype(np.float32))
         vals_d, w_ell = None, 0
@@ -515,8 +496,8 @@ def _lobpcg_refined(S, n_eigs, tol=1e-9, max_refine=30):
     magnitude even for tightly clustered spectra. The device does all
     the O(d * nnz * k) filtering and O(n * k^2) orthogonalization in
     fp32; the host buys the last 4-5 digits with a few fp64 sweeps of
-    the same filter (TPU fp64 is emulated, so the precision tail is
-    the one part that belongs on the host).
+    the same filter (fp64 is the slow path on the device, so the
+    precision tail is the one part that belongs on the host).
 
     Returns ``(w, u, info)`` with w descending, u column-orthonormal.
     """
@@ -696,15 +677,14 @@ def implied_timescales_batched(assigns, lag_times, n_times=None,
                                n_states=None, mesh=None):
     """Implied timescales for EVERY lag in one compiled device launch.
 
-    The TPU-native formulation of the reference's serial per-lag loop
+    The batched formulation of the reference's serial per-lag loop
     (enspara/msm/timescales.py:88-92): lag-pair counting vmaps over
     lags (the lag is traced, see :func:`_counts_at_traced_lag`), the
     transpose-builder algebra (``T = rownorm(C + C^T)``, eq from row
     sums — builders.py:83 semantics incl. the zero-row guard) is pure
     batched array math, and the reversible eigensolve runs as ONE
     batched symmetrized ``eigh`` over the (n_lags, n, n) stack. One
-    dispatch replaces n_lags dependent chains — on a tunneled/remote
-    host this also removes n_lags round-trip latencies.
+    dispatch replaces n_lags dependent chains of host round trips.
 
     Restrictions vs :func:`implied_timescales_device`: transpose
     builder only (MLE's Gauss-Seidel is host-sequential) and no
@@ -714,7 +694,7 @@ def implied_timescales_batched(assigns, lag_times, n_times=None,
 
     With ``mesh`` (a 1-D ``jax.sharding.Mesh``), the lag axis is
     sharded across the mesh and the assignments are replicated — each
-    chip runs its lag subset of the SAME batched program (GSPMD
+    device runs its lag subset of the SAME batched program (GSPMD
     propagates the input sharding through the vmap), the multi-chip
     form of the reference's "embarrassingly parallel over lags" note
     (timescales.py:12-16).

@@ -2,7 +2,7 @@
 matrix. (reference: enspara/msm/synthetic_data.py)
 
 ``synthetic_trajectory`` follows the reference host API;
-``synthetic_trajectory_device`` is the TPU-native kinetic Monte Carlo:
+``synthetic_trajectory_device`` is the device kinetic Monte Carlo:
 a ``lax.scan`` over steps with categorical sampling per step, vmappable
 over many chains — replacing the reference's per-step Python loop.
 """

@@ -172,22 +172,19 @@ _COUNTS_MATMUL_BLOCK = 2048
 
 
 def _counts_matmul(start, end, valid, n_states):
-    """Transition counts as blocked one-hot matmuls on the MXU:
+    """Transition counts as blocked one-hot matmuls:
     ``C = sum_blocks onehot(start_blk)^T @ onehot(end_blk)``.
 
-    One-hot entries are 0/1 (exact in bf16) and the MXU accumulates in
-    fp32, so counts are exact up to 2^24 per cell. Invalid pairs are
+    One-hot entries are 0/1 (exact in bf16) and the product accumulates
+    in fp32, so counts are exact up to 2^24 per cell. Invalid pairs are
     encoded as state ``n_states`` whose one-hot row is all zero — no
     separate mask multiply needed.
 
-    MEASURED NEGATIVE RESULT (v5e, 1M pairs): unlike the all-pairs
-    joint-counts kernel, this formulation LOSES to jnp.bincount —
-    15.1 vs 9.6 ms at 1000 states and 206 vs 14 ms at 4096 states.
-    XLA's bincount lowering is already fast, while the matmul pays
+    The default is ``jnp.bincount``: this formulation pays an
     (n_states, n_states) fp32 accumulator read+write per 2048-pair
-    block (65 GB of carry traffic at 4096 states). Kept as an
-    explicitly-requested path only (``use_matmul=True``); see
-    docs/performance.md.
+    block (65 GB of carry traffic at 4096 states and 1M pairs). Kept
+    as an explicitly requested path (``use_matmul=True``); not measured
+    on a GPU.
     """
     import jax
     import jax.numpy as jnp
@@ -224,8 +221,7 @@ def assigns_to_counts_device(assigns_padded, mask, lag_time, n_states,
     :func:`assigns_to_counts`, which compacts gaps before pairing; on
     gap-free data they agree exactly.
 
-    ``use_matmul=True`` forces the one-hot MXU formulation — measured
-    SLOWER than the default bincount lowering at all tested sizes (see
+    ``use_matmul=True`` forces the one-hot matmul formulation (see
     :func:`_counts_matmul`); it exists as an ablation/testing knob.
 
     Returns a dense (n_states, n_states) int32 device array.

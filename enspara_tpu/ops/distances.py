@@ -1,10 +1,10 @@
 """Vector-feature distance kernels (device path).
 
-TPU-native replacement for the reference's Cython+OpenMP libdist
+Device replacement for the reference's Cython+OpenMP libdist
 (enspara/geometry/libdist.pyx:77-203). The point-vs-set forms are plain
-VPU elementwise reductions; the set-vs-set euclidean form is rewritten as
+elementwise reductions; the set-vs-set euclidean form is rewritten as
 a Gram-matrix matmul (``|x-y|^2 = |x|^2 + |y|^2 - 2 x.y``) so the FLOPs
-ride the MXU. Everything is jittable and shards over the frame axis.
+go to a matrix product. Everything is jittable and shards over the frame axis.
 """
 
 import functools
@@ -41,7 +41,7 @@ def hamming_to_point(X, y):
 def pairwise_euclidean(X, Y, squared=False):
     """All-pairs euclidean distances (n, m) via the Gram-matrix identity.
 
-    The cross term is one (n, d) x (d, m) matmul — MXU-resident. A small
+    The cross term is one (n, d) x (d, m) matmul. A small
     clamp guards fp32 cancellation for near-identical points.
     """
     X = jnp.asarray(X, jnp.float32)
@@ -56,7 +56,7 @@ def pairwise_euclidean(X, Y, squared=False):
 
 @jax.jit
 def pairwise_manhattan(X, Y):
-    """All-pairs L1 distances; broadcast-reduce (VPU), vmapped over Y."""
+    """All-pairs L1 distances; broadcast-reduce, vmapped over Y."""
     def one(y):
         return jnp.sum(jnp.abs(X - y[None, :]), axis=-1)
     return jax.vmap(one)(Y).T

@@ -1,21 +1,22 @@
 """Theobald QCP RMSD — the flagship device kernel of the framework.
 
 The reference reaches minimum-RMSD through mdtraj's C/SSE Theobald code
-(enspara/cluster/util.py:291 ``md.rmsd``); here it is rebuilt TPU-native:
+(enspara/cluster/util.py:291 ``md.rmsd``); here it is rebuilt for the
+device:
 
 * the 3x3 inner-product matrices for all (frame, center) pairs come from
-  one big matmul over the atom axis — MXU work,
+  one big matmul over the atom axis, at full fp32 precision,
 * the quartic characteristic polynomial of the QCP 4x4 key matrix is
-  solved for its largest root with a scaled Newton iteration — VPU work,
-* a Pallas kernel (:mod:`enspara_tpu.ops.qcp_pallas`) fuses both so the
-  (F, C, 3, 3) intermediate never touches HBM.
+  solved for its largest root with a scaled Newton iteration,
+* the k-centers iteration fuses both into one Triton kernel
+  (:mod:`enspara_tpu.ops.kcenters_triton`) that reads each frame once.
 
 Math follows Theobald (2005), Acta Cryst. A61 478-480 and Liu, Agrafiotis
 & Theobald (2010), J. Comput. Chem. 31 1561-1563. RMSD is computed from
 the largest eigenvalue lambda_max of the key matrix:
 ``rmsd = sqrt(max(0, ga + gb - 2*lambda_max) / n_atoms)``.
 
-All computation is fp32 (TPU-native); the Newton iteration runs on the
+All computation is fp32; the Newton iteration runs on the
 scaled variable ``u = lambda / lambda0`` with ``lambda0 = (ga+gb)/2`` so
 every quantity stays O(1) regardless of structure size.
 """
@@ -77,10 +78,9 @@ def _poly_coeffs_scaled(S, lam0):
 
 def _poly_coeffs_scaled_components(Sc, lam0):
     """Like :func:`_poly_coeffs_scaled` but takes the nine inner-product
-    components as separate arrays. This lets callers choose a layout
-    where the component axis is NOT minormost — on TPU a (n, 3, 3)
-    array is tile-padded to (n, 4, 128) in HBM (57x physical inflation),
-    so the vector path keeps S as nine dense (n,) arrays instead."""
+    components as separate arrays, so callers keep S as nine dense
+    arrays in whatever layout suits them (the frame-minor kernel holds
+    nine per-frame register sums)."""
     (Sxx, Sxy, Sxz, Syx, Syy, Syz, Szx, Szy, Szz) = Sc
 
     Sxx2, Sxy2, Sxz2 = Sxx * Sxx, Sxy * Sxy, Sxz * Sxz
@@ -158,45 +158,28 @@ def _rmsd_from_S(S, ga, gb, n_atoms):
     return jnp.sqrt(msd)
 
 
-def _newton_max_root_unrolled(c2, c1, c0, approx_recip=False):
+def _newton_max_root_unrolled(c2, c1, c0):
     """Largest quartic root, Newton UNROLLED as straight-line code —
-    the form Pallas kernel bodies use (Mosaic-friendly; same math as
-    :func:`_newton_max_root`).
-
-    ``approx_recip=True`` (pallas kernel bodies only) replaces the VPU
-    divide with the hardware approximate reciprocal: each Newton step
-    only needs the step DIRECTION to ~2^-14, and the final residual is
-    set by fp32 evaluation of p, not by the division — measured
-    ~0.1 ms/iteration off the fused k-centers kernel at n=1M with
-    distances unchanged at the fp32 noise floor."""
-    div = None
-    if approx_recip:
-        from jax.experimental import pallas as pl
-
-        def div(p, dp):
-            return p * pl.reciprocal(dp, approx=True)
-    else:
-        def div(p, dp):
-            return p / dp
+    the form Pallas kernel bodies use (same math as
+    :func:`_newton_max_root`)."""
     u = jnp.ones_like(c2)
     for _ in range(NEWTON_ITERS):
         u2 = u * u
         p = u2 * u2 + c2 * u2 + c1 * u + c0
         dp = u * (4.0 * u2 + 2.0 * c2) + c1
-        step = div(p, jnp.where(jnp.abs(dp) < 1e-12, 1e-12, dp))
+        step = p / jnp.where(jnp.abs(dp) < 1e-12, 1e-12, dp)
         u = u - jnp.clip(step, -0.5, 0.5)
     return jnp.clip(u, 0.0, 1.0)
 
 
-def rmsd_from_S_components_unrolled(Sc, gsum, n_atoms_real,
-                                    approx_recip=False):
-    """Shared epilogue for the Pallas QCP kernels: nine inner-product
-    components + G sums -> RMSD, with the Newton iteration unrolled.
-    Pure jnp on arrays of any (matching) shape, so kernel bodies can
-    trace through it."""
+def rmsd_from_S_components_unrolled(Sc, gsum, n_atoms_real):
+    """Shared epilogue of the fused k-centers iteration: nine
+    inner-product components + G sums -> RMSD, with the Newton
+    iteration unrolled. Pure jnp on arrays of any (matching) shape, so
+    kernel bodies can trace through it."""
     lam0 = gsum * 0.5
     c2, c1, c0 = _poly_coeffs_scaled_components(Sc, lam0)
-    u = _newton_max_root_unrolled(c2, c1, c0, approx_recip=approx_recip)
+    u = _newton_max_root_unrolled(c2, c1, c0)
     return jnp.sqrt(jnp.maximum(gsum - 2.0 * u * lam0, 0.0)
                     / n_atoms_real)
 
@@ -234,9 +217,9 @@ def qcp_rmsd_matrix(frames, centers, g_frames, g_centers, n_atoms=None):
     centers = jnp.asarray(centers, jnp.float32)
     if n_atoms is None:
         n_atoms = frames.shape[-2]
-    # S[i, j, f, c] = sum_n frames[f, n, i] * centers[c, n, j] — the
-    # (i, j) axes lead so the buffer stays dense on TPU (an (F, C, 3,
-    # 3) output tile-pads (3, 3) -> (4, 128), 57x the bytes).
+    # S[i, j, f, c] = sum_n frames[f, n, i] * centers[c, n, j], with
+    # the (i, j) axes leading so the nine components slice out as dense
+    # (F, C) planes. HIGHEST keeps the product out of TF32.
     S = jnp.einsum('fni,cnj->ijfc', frames, centers,
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)
@@ -253,10 +236,8 @@ def qcp_rmsd_vector(frames, center, g_frames, g_center, n_atoms=None):
     center = jnp.asarray(center, jnp.float32)
     if n_atoms is None:
         n_atoms = frames.shape[-2]
-    # S laid out (3, 3, F) — frame axis minormost. The natural
-    # (F, 3, 3) output is tile-padded to (F, 4, 128) in HBM (2 GB at
-    # F=1M for 36 MB of data); with F minor the buffer stays dense and
-    # the nine components slice out as plain (F,) vectors.
+    # S laid out (3, 3, F), frame axis minormost, so the nine
+    # components slice out as plain (F,) vectors.
     S = jnp.einsum('fni,nj->ijf', frames, center,
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)
@@ -266,7 +247,7 @@ def qcp_rmsd_vector(frames, center, g_frames, g_center, n_atoms=None):
 
 
 def prepare_structures(xyz, n_atoms_pad=None):
-    """Center structures and pad the atom axis for MXU-friendly shapes.
+    """Center structures and optionally zero-pad the atom axis.
 
     Returns ``(centered_padded, g, n_real_atoms)``. Padding atoms sit at
     the origin, which is exact for QCP (zero contribution to S and G).

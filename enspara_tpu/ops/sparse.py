@@ -1,17 +1,17 @@
 """Sparse device operands: dense materialization and ELL SpMM.
 
-TPU linear algebra (LU, eigh) wants dense operands in HBM, but
-shipping a host-densified matrix through PCIe (or worse, a dev
-tunnel) moves n^2 mostly-zero bytes. Scattering the COO triplets on
+Device linear algebra (LU, eigh) wants dense operands in device
+memory, but shipping a host-densified matrix through PCIe moves n^2
+mostly-zero bytes. Scattering the COO triplets on
 device moves O(nnz) instead — a 10k-state MSM uploads <1 MB rather
 than 400 MB.
 
 For ITERATED sparse products past the densification cap (LOBPCG,
 power/filter iterations), generic COO/BCOO matmul lowers to
-scatter-adds — the slowest memory op on TPU. ELL format turns the
+scatter-adds — the slowest memory op on the device. ELL format turns the
 same product into ``w`` fixed-width row GATHERS of the dense operand
-(``Y = sum_j vals[:, j, None] * X[cols[:, j]]``), each an
-HBM-streaming ``(n, k)`` read with no data-dependent writes; padding
+(``Y = sum_j vals[:, j, None] * X[cols[:, j]]``), each a
+streaming ``(n, k)`` read with no data-dependent writes; padding
 rows to the max width costs only zero-multiplies. MSM graphs are
 near-regular (metastable states couple to O(1) neighbors), so the
 pad waste is small; callers should fall back to BCOO when
@@ -45,7 +45,7 @@ def _scatter_fn(n, m):
 
 
 def dense_on_device(sp, scale_rows=None, scale_cols=None):
-    """Materialize ``sp`` (scipy sparse) dense fp32 in HBM from its
+    """Materialize ``sp`` (scipy sparse) dense fp32 in device memory from its
     COO triplets. Optional per-row / per-column scaling vectors are
     applied to the values on host (O(nnz)) before the scatter — this
     computes D_r @ sp @ D_c without ever forming a dense host array.
@@ -98,7 +98,7 @@ def ell_from_sparse(sp, dtype=np.float32):
 def _ell_spmm_fn(n, w, k, shift):
     """Cached jitted ELL SpMM ``Y = A @ X (+ shift * X)``: ``w``
     (n, k) row-gathers with fused multiply-accumulate — no scatters,
-    HBM traffic ~ w*n*k reads, and never an (n, w, k) intermediate.
+    memory traffic ~ w*n*k reads, and never an (n, w, k) intermediate.
     Unrolled below 32 columns (lets XLA pipeline the gathers); a
     ``fori_loop`` above that bounds program size for wide rows. Same
     executable-reuse rationale as :func:`_scatter_fn`."""

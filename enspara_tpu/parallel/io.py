@@ -3,7 +3,7 @@
 
 Under JAX's single-controller model one process drives all local
 devices, so "striping" applies at the multi-host level: process i loads
-files i % n_processes (DCN-side data parallelism), and device-level
+files i % n_processes (process-level data parallelism), and device-level
 sharding happens when arrays are placed with
 :func:`enspara_tpu.parallel.mesh.shard_frames`. On a single host these
 functions load everything, matching the reference's 1-rank behavior.

@@ -262,7 +262,7 @@ def randind(local_array, random_state=None):
     ``(owner_rank, local_index)`` (reference: mpi/ops.py:215). The
     index is drawn on process 0 and broadcast, so all processes agree.
     """
-    from sklearn.utils import check_random_state
+    from ..util.rng import check_random_state
 
     from .. import ra as ra_mod
     from ..exception import DataInvalid

@@ -1,7 +1,7 @@
 """Device views of ragged data.
 
 XLA requires static shapes, so ragged trajectory collections are presented
-to TPU kernels in one of two canonical forms:
+to device kernels in one of two canonical forms:
 
 * **padded**: ``(n_rows, max_len, ...)`` dense array + ``(n_rows, max_len)``
   boolean validity mask. Right shape for per-trajectory scans (rotamer

@@ -7,7 +7,7 @@ numpy-like indexing — ``ra[i]``, ``ra[rows]``, ``ra[i, j]``,
 ``ra[:, ::stride]``, boolean-mask indexing — and elementwise arithmetic
 that broadcasts over the flat data.
 
-TPU note: this container is deliberately numpy/host-only. The device view
+Device note: this container is deliberately numpy/host-only. The device view
 (padded ``(n_rows, max_len, ...)`` + mask, and flat ``segment_ids``) lives
 in :mod:`enspara_tpu.ra.device`; every device kernel consumes that view,
 never this class.
@@ -481,7 +481,7 @@ class RaggedArray(object):
     def padded(self, max_len=None, fill=0, dtype=None):
         """Return ``(padded, mask)``: a dense ``(n_rows, max_len, ...)``
         array with rows front-aligned plus a boolean validity mask — the
-        canonical TPU-side representation of ragged data."""
+        canonical device-side representation of ragged data."""
         from .device import pad_ragged
         return pad_ragged(self._data, self.lengths, max_len=max_len,
                           fill=fill, dtype=dtype)

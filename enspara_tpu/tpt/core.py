@@ -1,10 +1,10 @@
 """Committor probabilities and mean first passage times.
 (reference: enspara/tpt/core.py)
 
-Linear solves run as dense fp32 LU on device (one MXU factorization)
+Linear solves run as dense fp32 LU on device (one factorization)
 refined to fp64 accuracy with cheap sparse host residuals — direct
 SuperLU factorization of MSM graphs suffers catastrophic fill-in
-(ring + shortcut topologies take minutes at 10k states where the MXU
+(ring + shortcut topologies take minutes at 10k states where the device LU
 takes well under a second).
 
 Systems too big to densify (> ~16k states) use the reversibility of
@@ -26,6 +26,7 @@ import scipy.sparse
 import scipy.sparse.linalg
 
 from ..citation import cite
+from ..util.backend import on_accelerator
 from ..msm.transition_matrices import (_eq_probs_detailed_balance,
                                        eq_probs)
 
@@ -33,30 +34,16 @@ logger = logging.getLogger(__name__)
 
 __all__ = ['committors', 'mfpts']
 
-# densify absorbing-state solves on device up to this many states
-# (n^2 fp32 = 1 GB at 16k; past that, host sparse LU)
-# measured on v5e: XLA's blocked LU overflows scoped VMEM somewhere in
-# the 11-16k decade (17.5 MB request against the 16 MB limit at
-# n=12000), so the device-LU dispatch cap sits at the largest size
-# verified to factor (10k, reference-configs config4). Past the cap —
-# or if the device attempt fails anyway — the host sparse engines
-# take over.
+# densify absorbing-state solves on the device up to this many states.
+# The dense fp32 system and its LU factors take about 3 * n^2 * 4 bytes,
+# 1.3 GB at the cap: a small share of one device's memory. Where the
+# dense device LU stops beating the host sparse LU on a GPU is not
+# measured; past the cap the host sparse engines take over.
 _DENSE_SOLVE_MAX_STATES = 10240
 
 
-def _device_solve_profitable():
-    """The dense LU path pays off on accelerators (10k-state factor +
-    solve ~0.25 s on one v5e vs ~70 s SuperLU with fill-in); on the
-    CPU backend XLA's LU loses to SuperLU, so keep the host path."""
-    try:
-        import jax
-        return jax.default_backend() != 'cpu'
-    except Exception:
-        return False
-
-
 def _dense_on_device(sp):
-    """Materialize a sparse matrix DENSE IN HBM by scattering its COO
+    """Materialize a sparse matrix DENSE IN device memory by scattering its COO
     triplets on device — the host never builds (or ships) the n^2
     array, so a 10k-state system uploads ~nnz values (<1 MB) instead
     of 400 MB of mostly zeros."""
@@ -136,7 +123,7 @@ def _refined_solve(A_dense32, B, A_exact=None, max_refine=10,
     Bm = B[:, None] if b1d else B
 
     if isinstance(A_dense32, jax.Array):
-        A32 = A_dense32                 # already fp32 in HBM
+        A32 = A_dense32                 # already fp32 on the device
     else:
         A32 = A_dense32.astype(np.float32)
     factor, solve = _lu_jitted()
@@ -395,20 +382,13 @@ def committors(tprob, sources, sinks, pi=None):
 
         q = None
         if (n_states <= _DENSE_SOLVE_MAX_STATES
-                and _device_solve_profitable()):
+                and on_accelerator()):
             # committors are linear in the sink columns, so ONE solve
-            # of the summed RHS vector replaces a solve per sink. The
-            # device LU is resource-limited below the size cap (XLA's
-            # blocked LU overflows v5e scoped VMEM somewhere in the
-            # 11-16k decade), so any device failure degrades to the
-            # host sparse engines instead of crashing.
-            try:
-                q = _refined_solve(_dense_on_device(I_m_Q), b,
-                                   A_exact=I_m_Q)
-            except Exception:
-                logger.info('device LU path failed; falling back to '
-                            'the host sparse path', exc_info=True)
-                q = None
+            # of the summed RHS vector replaces a solve per sink. On
+            # the CPU backend XLA's dense LU loses to SuperLU, so the
+            # host sparse engines keep that case.
+            q = _refined_solve(_dense_on_device(I_m_Q), b,
+                               A_exact=I_m_Q)
             if q is None:
                 logger.info('fp32 refinement unavailable; using the '
                             'host sparse path')
@@ -423,13 +403,8 @@ def committors(tprob, sources, sinks, pi=None):
         b[np.unique(sources)] = 0.0
         I_m_Q = _I_m_Q(dense, all_absorbing, n_states=n_states)
         q = None
-        if n_states >= 64 and _device_solve_profitable():
-            try:
-                q = _refined_solve(I_m_Q, b)
-            except Exception:
-                logger.info('device LU path failed; using the host '
-                            'dense solve', exc_info=True)
-                q = None
+        if n_states >= 64 and on_accelerator():
+            q = _refined_solve(I_m_Q, b)
         if q is None:
             q = np.linalg.solve(I_m_Q, b)
 
@@ -453,7 +428,7 @@ def mfpts(tprob, sinks=None, populations=None, lagtime=1.):
     # seconds
     if scipy.sparse.issparse(tprob) and sinks is not None \
             and (tprob.shape[0] > _DENSE_SOLVE_MAX_STATES
-                 or not _device_solve_profitable()):
+                 or not on_accelerator()):
         sinks = np.array(sinks, dtype=int).reshape(-1)
         n_states = tprob.shape[0]
         A, _ = _absorbing_csr_system(tprob, sinks,
@@ -481,13 +456,8 @@ def mfpts(tprob, sinks=None, populations=None, lagtime=1.):
     I_m_Q = _I_m_Q(tprob, sinks, n_states=n_states)
     c = np.ones(n_states)
     c[sinks] = 0
-    if n_states >= 64 and _device_solve_profitable():
-        try:
-            x = _refined_solve(I_m_Q, c)
-        except Exception:
-            logger.info('device LU path failed; using the host dense '
-                        'solve', exc_info=True)
-            x = None
+    if n_states >= 64 and on_accelerator():
+        x = _refined_solve(I_m_Q, c)
         if x is not None:
             return lagtime * x
     return lagtime * np.linalg.solve(I_m_Q, c)

@@ -1,13 +1,8 @@
-"""Backend/platform selection that works under site hooks.
+"""Backend selection and the one capability query the library asks.
 
-``JAX_PLATFORMS`` is latched into ``jax.config`` when jax is imported;
-deployment images that pre-import jax (or pin ``jax_platforms`` in a
-site hook) silently override the env var, and the legacy
-``JAX_PLATFORM_NAME`` can leave a stale platform name in the config
-that later fails backend lookup. Mutating the config before the first
-device op is the only reliable route — the same robustness stance as
-the reference's comm bootstrap (enspara/mpi/__init__.py:11-28: degrade
-to what the environment can actually provide).
+Every choice between an accelerator path and a host path goes through
+:func:`on_accelerator`; nothing else in the package compares platform
+names.
 """
 
 import logging
@@ -15,11 +10,11 @@ import os
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['select_platform']
+__all__ = ['select_platform', 'on_accelerator', 'device_memory_bytes']
 
 
 def select_platform(platform=None):
-    """Pin jax to ``platform`` ('cpu', 'tpu', ...) for this process.
+    """Pin jax to ``platform`` ('cpu', 'gpu', ...) for this process.
 
     When ``platform`` is None, reads ``$ENSPARA_TPU_PLATFORM`` and is a
     no-op if that is unset/empty. Safe to call multiple times; logs
@@ -37,3 +32,19 @@ def select_platform(platform=None):
     except Exception as e:  # pragma: no cover - backend already live
         logger.warning('could not pin jax platform to %r: %s',
                        platform, e)
+
+
+def on_accelerator(mesh=None):
+    """True when work placed on ``mesh`` (default: the default backend)
+    runs on an accelerator rather than the host CPU."""
+    if mesh is not None:
+        return mesh.devices.flat[0].platform != 'cpu'
+    import jax
+    return jax.default_backend() != 'cpu'
+
+
+def device_memory_bytes(device):
+    """Memory the allocator may hand out on ``device`` (its
+    ``bytes_limit``), or None where the backend does not report it."""
+    stats = device.memory_stats()
+    return None if not stats else stats.get('bytes_limit')

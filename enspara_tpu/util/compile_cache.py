@@ -1,50 +1,39 @@
 """Persistent XLA compilation cache.
 
-The engine's fused while_loops take tens of seconds to compile on TPU;
+The engine's while_loops and the eigensolver take seconds to compile;
 caching compiled executables on disk makes that a once-per-machine cost.
-Enabled automatically by the apps and bench harness; set
-``ENSPARA_TPU_CACHE_DIR`` to override the location or ``0`` to disable.
+Enabled by the apps and the bench harness.
 
-The cache directory is namespaced by a host fingerprint (jax version +
-arch + CPU feature flags): XLA:CPU's cache key does not capture the
-compile machine's vector extensions, so an entry AOT-compiled on an
-AVX-512/AMX host loads on a lesser machine with a SIGILL risk (the
-loader warns "Machine type used for XLA:CPU compilation doesn't match
-the machine type for execution"). Shared home directories make this a
-real hazard, not a theoretical one.
+Where ``$JAX_COMPILATION_CACHE_DIR`` is set, jax already keeps its cache
+there and this module sets no other directory. Otherwise the cache
+lives at a fixed path inside the checkout, ``<repo>/.jax_cache``, so a
+later run of the same checkout finds it.
+
+The cache stays off on the CPU backend: XLA:CPU's cache key does not
+capture the compiling machine's vector extensions, so an entry compiled
+on an AVX-512 host can be loaded on a lesser one and die with SIGILL.
 """
 
-import hashlib
 import os
-import platform
 
-_DEFAULT = os.path.expanduser('~/.cache/enspara_tpu_xla')
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), '.jax_cache')
 
 
-def _host_fingerprint():
+def enable_compilation_cache():
+    """Turn on the persistent cache for accelerator compiles. Returns
+    the directory in use, or None where the cache stays off."""
     import jax
 
-    parts = [jax.__version__, platform.machine()]
-    try:
-        with open('/proc/cpuinfo') as f:
-            for line in f:
-                if line.startswith('flags'):
-                    parts.append(line)
-                    break
-    except OSError:
-        pass
-    return hashlib.sha1('|'.join(parts).encode()).hexdigest()[:12]
+    from .backend import on_accelerator
 
-
-def enable_compilation_cache(path=None):
-    loc = path or os.environ.get('ENSPARA_TPU_CACHE_DIR', _DEFAULT)
-    if loc == '0':
-        return
-    import jax
-    try:
-        loc = os.path.join(loc, _host_fingerprint())
+    if not on_accelerator():
+        return None
+    loc = os.environ.get('JAX_COMPILATION_CACHE_DIR')
+    if not loc:
+        loc = DEFAULT_DIR
         jax.config.update('jax_compilation_cache_dir', loc)
-        jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
-        jax.config.update('jax_persistent_cache_min_entry_size_bytes', -1)
-    except Exception:
-        pass
+    jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
+    jax.config.update('jax_persistent_cache_min_entry_size_bytes', -1)
+    return loc

@@ -3,7 +3,7 @@
 ``timed`` mirrors the reference's context manager (enspara/util/log.py:5)
 and is used to wrap hot sections throughout the framework. On top of the
 reference's wall-time logging we add optional JAX profiler trace regions
-and device-memory stats, which are the TPU-native observability analogue.
+and device-memory stats, which are the device observability analogue.
 """
 
 import logging

@@ -1,6 +1,6 @@
 """Test configuration: run everything on CPU with 8 virtual XLA devices so
-sharded == unsharded equivalence can be asserted without TPU hardware
-(the TPU-native analogue of the reference's `mpirun -n 2 pytest -m mpi`
+sharded == unsharded equivalence can be asserted without accelerator
+hardware (the analogue of the reference's `mpirun -n 2 pytest -m mpi`
 strategy, SURVEY.md §4)."""
 
 import os
@@ -22,5 +22,22 @@ os.environ.setdefault('ENSPARA_TPU_USE_REFERENCE_DATA', '1')
 # created lazily, so updating the config here still takes effect.
 import jax  # noqa: E402
 
-jax.config.update('jax_platforms', 'cpu')
+# `JAX_PLATFORMS=cuda,cpu pytest -m chip` runs the GPU tests on a card
+jax.config.update('jax_platforms', os.environ['JAX_PLATFORMS'])
 jax.config.update('jax_num_cpu_devices', 8)
+
+
+import pytest  # noqa: E402
+
+
+@pytest.fixture
+def gpu():
+    """The first GPU device; skips the test where there is none. The
+    check runs when the test runs, never at import or collection."""
+    try:
+        devices = jax.devices('gpu')
+    except RuntimeError:
+        devices = []
+    if not devices:
+        pytest.skip('needs a GPU: the kernel has no compiled form here')
+    return devices[0]

@@ -181,7 +181,7 @@ def test_cluster_iterations_rejected_for_kcenters(tmp_path):
 
 
 def test_cluster_precision_flag_validation(tmp_path):
-    """--precision bf16 is the fused TPU streaming knob: only valid for
+    """--precision bf16 is the k-centers frame-storage knob: only valid for
     kcenters + rmsd. Any other combination must be rejected up front."""
     from enspara_tpu import exception
 
@@ -199,11 +199,9 @@ def test_cluster_precision_flag_validation(tmp_path):
 
 
 def test_kcenters_precision_param_roundtrip():
-    """KCenters carries precision through get/set_params, and the
-    functional kcenters() rejects bf16 off the device rmsd path (the
-    bf16 stream lives in the fused TPU kernel)."""
-    import jax
-
+    """KCenters carries precision through get/set_params; the
+    functional kcenters() rejects bf16 off the device rmsd path and
+    runs it on that path."""
     from enspara_tpu.cluster import KCenters, kcenters
     from enspara_tpu import exception
 
@@ -218,13 +216,11 @@ def test_kcenters_precision_param_roundtrip():
         kcenters(X, lambda a, b: np.abs(a - b).sum(axis=1),
                  n_clusters=2, precision='bf16')
 
-    if jax.default_backend() != 'tpu':
-        # on a non-TPU backend the device engine refuses bf16 loudly
-        # rather than silently running fp32
-        xyz = np.random.default_rng(1).normal(
-            size=(12, 5, 3)).astype(np.float32)
-        with pytest.raises(ValueError):
-            kcenters(xyz, 'rmsd', n_clusters=2, precision='bf16')
+    # the device rmsd path stores bf16 frames on every backend
+    xyz = np.random.default_rng(1).normal(
+        size=(12, 5, 3)).astype(np.float32)
+    res = kcenters(xyz, 'rmsd', n_clusters=2, precision='bf16')
+    assert len(res.center_indices) == 2
 
 
 def test_cluster_app_no_reassign(tmp_path):

@@ -4,7 +4,7 @@ each => a 4-device global frame mesh) on the bundled trajectories must
 reproduce the single-process run exactly — center indices and
 assignments byte-equal, distances to fp tolerance.
 
-This is the TPU-native analog of the reference's key MPI oracle
+This is the analog of the reference's key MPI oracle
 (enspara/test/test_apps_cluster_mpi.py:128-139, run under
 ``mpirun -n 2``): there the ranks stripe the data and byte-equality
 follows from identical serial distance code; here the SPMD program is

@@ -164,7 +164,7 @@ def test_assign_device_rmsd():
 
 
 def test_kcenters_sharded_matches_single_device():
-    """Explicit 1-device vs 8-device mesh equivalence (the TPU analogue
+    """Explicit 1-device vs 8-device mesh equivalence (the analogue
     of the reference's serial-vs-MPI oracle, SURVEY.md §4)."""
     import jax
     from jax.sharding import Mesh

@@ -372,7 +372,7 @@ def test_counts_device_matches_host_gapfree():
 
 
 def test_counts_matmul_path_exact():
-    """The one-hot MXU matmul counting path (the TPU fast path) is
+    """The one-hot matmul counting path is
     exactly equal to the scatter/bincount path — masks, -1 gaps,
     strided windows, and non-divisible block padding included."""
     rng = np.random.default_rng(11)

@@ -218,7 +218,7 @@ def test_committors_sparse_matches_dense_10k_style():
 
 
 def test_dense_on_device_scatter_matches_toarray():
-    # the HBM scatter densification must equal host toarray exactly,
+    # the device scatter densification must equal host toarray exactly,
     # and feed _refined_solve to the same answer
     import scipy.sparse
 
@@ -360,3 +360,41 @@ def test_committors_duplicate_sinks_are_deduplicated():
     import scipy.sparse as sp
     q3 = committors(sp.csr_matrix(T), [0], [5, 5])
     assert_allclose(q1, q3, atol=1e-9)
+
+
+def _failing_device_lu(monkeypatch):
+    """Route TPT to its device LU path and make the factorization fail
+    the way a device error would."""
+    import pytest
+    from enspara_tpu.tpt import core as _core
+
+    def boom():
+        raise RuntimeError('device LU failed')
+
+    monkeypatch.setattr(_core, 'on_accelerator', lambda: True)
+    monkeypatch.setattr(_core, '_lu_jitted', boom)
+    return pytest.raises(RuntimeError, match='device LU failed')
+
+
+def _chain(n=80):
+    T = np.diag(np.full(n, 0.5)) + np.diag(np.full(n - 1, 0.25), 1) \
+        + np.diag(np.full(n - 1, 0.25), -1)
+    T[0, 0] = T[-1, -1] = 0.75
+    return T
+
+
+def test_device_lu_failure_propagates_sparse(monkeypatch):
+    """A failing device LU on the sparse committor path raises; it is
+    not swapped for the host solver behind the caller's back."""
+    with _failing_device_lu(monkeypatch):
+        committors(scipy.sparse.csr_matrix(_chain()), [0], [79])
+
+
+def test_device_lu_failure_propagates_dense(monkeypatch):
+    with _failing_device_lu(monkeypatch):
+        committors(_chain(), [0], [79])
+
+
+def test_device_lu_failure_propagates_mfpts(monkeypatch):
+    with _failing_device_lu(monkeypatch):
+        mfpts(_chain(), sinks=[79])
