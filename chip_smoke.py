@@ -27,7 +27,7 @@ them (tests/test_apps.py).
 
 With ``--four-cards`` only phase 1 and the sharded path run: k-centers,
 assignment and transition counts on a 4-device mesh against a 1-device
-mesh on the first card.
+mesh on the first card; the centers must be identical.
 
 The last line of standard output is a JSON object
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
@@ -45,24 +45,37 @@ import time
 
 import numpy as np
 
-# tolerances (Angstrom). fp32 against the plain reference: the two sum
-# the inner products in another order, and the fp32 root of QCP's
-# characteristic quartic amplifies that difference: on the H100 at
-# 1M x 64 the kernel and the plain reference differ by up to 1.0e-4
-# relative at ~8 A while each is within ~1e-3 A of float64, so 1e-5
-# cannot hold between any two fp32 evaluations. The float64 oracle:
-# the fp32 QCP floor near zero distance, and the kernel may be no
-# less accurate than the plain reference there. bf16 frames: storage
-# rounds each centered coordinate to 2^-8 relative, so an RMSD moves by
-# at most 2^-8 (sqrt(Ga / n) + sqrt(Gb / n)) — the two structures' RMS
-# extents; that is ~4e-3 of the distance between far structures but
-# much more of a small one. A structure's distance
-# to itself is 0 up to the cancellation in ga + gb - 2 lambda, whose
-# size grows with the structure's extent: self pairs are held to
-# self_floor() instead and left out of the oracle samples.
+# Tolerances (Angstrom). Three of them were set after runs on the card
+# had failed a tighter limit; each notes the reading it was set from
+# (one H100 80GB HBM3, 1M x 64 frames from seed 0).
+#
+# fp32 against the plain reference: the two sum the inner products in
+# another order, and the fp32 root of QCP's characteristic quartic
+# amplifies that difference. The rtol was 1e-5 until a run read a
+# largest difference of 6.48e-4 A (about 1.2e-4 relative, at ~5.5 A);
+# at 2e-4 that reading is 0.54 of the tolerance. Each of the two stays
+# within 3e-4 A of float64.
 RTOL_FP32, ATOL_FP32 = 2e-4, 1e-4
+# The float64 oracle: the fp32 QCP floor near zero distance.
 ATOL_ORACLE = 5e-3
+# The kernel is a little less accurate than the plain reference against
+# float64 (readings: 2.70e-4 A against 1.73e-4 A and 2.18e-4 A), so it
+# is held to a bound, not to parity: its error at most ORACLE_SLACK
+# times the plain reference's plus ATOL_FP32. The readings sit at 0.75
+# and 0.63 of that bound.
+ORACLE_SLACK = 1.5
+# bf16 frames: storage rounds each centered coordinate to 2^-8
+# relative, so an RMSD moves by at most 2^-8 (sqrt(Ga / n) +
+# sqrt(Gb / n)), the two structures' RMS extents. That is ~4e-3 of the
+# distance between far structures but much more of a small one: an
+# rtol of 1e-2 failed at 0.174 relative on near pairs, while the
+# absolute bound reads 0.13-0.15 of itself.
 BF16_UNIT = 2.0 ** -8
+# Self distances are held to self_floor(), not to the oracle, and left
+# out of the oracle samples. SELF_ULPS was raised to 64 after a run
+# read a self distance of 0.0191 A, 1.2 times the floor then in force
+# (0.0159 A at that center).
+SELF_ULPS = 64
 ATOL_EIG, RTOL_TIMESCALES = 1e-4, 1e-3
 N_ORACLE_PAIRS = 4096
 LAG = 10
@@ -120,11 +133,13 @@ def centered(x):
 
 
 def self_floor(g, n_atoms):
-    """fp32 bound on a QCP self distance. For identical structures the
-    quartic's root is u = 1 (lambda = G); its fp32 coefficients are
-    sums of a dozen O(1) products, so Newton settles within ~64 ulp of
-    1, and msd = 2 G (1 - u) / n_atoms."""
-    return np.sqrt(2 * g * 64 * np.finfo(np.float32).eps / n_atoms)
+    """fp32 bound on a QCP self distance. A structure's distance to
+    itself is 0 up to the cancellation in ga + gb - 2 lambda, whose
+    size grows with the structure's extent. For identical structures
+    the quartic's root is u = 1 (lambda = G); its fp32 coefficients are
+    sums of a dozen O(1) products, so Newton settles within
+    SELF_ULPS ulp of 1, and msd = 2 G (1 - u) / n_atoms."""
+    return np.sqrt(2 * g * SELF_ULPS * np.finfo(np.float32).eps / n_atoms)
 
 
 # ---------------------------------------------------------------------
@@ -305,21 +320,26 @@ def phase_kernels(cfg, xyz, mesh, seed):
         far = d32 > 5.0
         rel = (err16[far] / d32[far]).max() if far.any() else 0.0
         say('center %d: fp32 max|err| %.3g A (%.3f of tolerance), '
-            'self %.3g A; bf16 max|err| %.3g A (%.3f of bound), %.3g '
-            'relative beyond 5 A' % (c, err[others].max(), ratio.max(),
-                                     d32[c], err16.max(),
-                                     (err16 / bound16).max(), rel))
+            'self %.3g A (floor %.3g A); bf16 max|err| %.3g A (%.3f of '
+            'bound), %.3g relative beyond 5 A'
+            % (c, err[others].max(), ratio.max(), d32[c], floor,
+               err16.max(), (err16 / bound16).max(), rel))
         sample = rng.choice(np.flatnonzero(others), per, replace=False)
         pairs += [(int(i), int(c)) for i in sample]
         got.append(d32[sample])
         plain.append(ref[sample])
     err, want = _oracle(xc, pairs, np.concatenate(got))
     err_plain = float(np.abs(np.concatenate(plain) - want).max())
+    bound = ORACLE_SLACK * err_plain + ATOL_FP32
     say('float64 Kabsch oracle on %d pairs: kernel max |err| %.3g A, '
-        'plain reference %.3g A' % (len(pairs), err, err_plain))
+        'plain reference %.3g A (kernel %.2fx the plain error, %.3f of '
+        'the bound %g x plain + %g A)'
+        % (len(pairs), err, err_plain, err / err_plain, err / bound,
+           ORACLE_SLACK, ATOL_FP32))
     check(err <= ATOL_ORACLE, 'kernel vs float64 oracle %.3g' % err)
-    check(err <= 1.5 * err_plain + ATOL_FP32,
-          'kernel less accurate than the plain reference')
+    check(err <= bound, 'kernel float64 error %.3g A beyond %g x the '
+          'plain reference\'s %.3g A + %g A'
+          % (err, ORACLE_SLACK, err_plain, ATOL_FP32))
     return xc.astype(np.float32)
 
 
@@ -614,19 +634,20 @@ def phase_four_cards(cfg, xyz, n_cards):
     rn, an, dn = out[n_cards]
     say('transition counts equal the host counts on 1 and %d devices'
         % n_cards)
+    # the sharded loop runs the same kernel on the same frames; only the
+    # cross-card argmax differs, so the centers must be identical
     prep = engine.prepare_rmsd_frames(xyz, mesh=mesh1)
-    if _check_centers(rn.center_indices, r1.center_indices, prep,
-                      mesh1, '%d vs 1 devices' % n_cards):
-        ctr = np.asarray(r1.center_indices)
-        _check_assignments(xc, np.asarray(rn.assignments),
-                           np.asarray(rn.distances),
-                           np.asarray(r1.assignments),
-                           np.asarray(r1.distances), ctr,
-                           'kcenters %d vs 1' % n_cards)
-        _check_assignments(xc, an, dn, a1, d1, ctr,
-                           'assign_device %d vs 1' % n_cards)
-    else:
-        say('centers diverge at a near-tie; assignments not compared')
+    check(_check_centers(rn.center_indices, r1.center_indices, prep,
+                         mesh1, '%d vs 1 devices' % n_cards),
+          '%d vs 1 devices: the centers diverge' % n_cards)
+    ctr = np.asarray(r1.center_indices)
+    _check_assignments(xc, np.asarray(rn.assignments),
+                       np.asarray(rn.distances),
+                       np.asarray(r1.assignments),
+                       np.asarray(r1.distances), ctr,
+                       'kcenters %d vs 1' % n_cards)
+    _check_assignments(xc, an, dn, a1, d1, ctr,
+                       'assign_device %d vs 1' % n_cards)
 
     # collectives of the sharded k-centers loop
     import jax.numpy as jnp

@@ -13,15 +13,12 @@ mutual_info.py:149-153.) Counts are accumulated chunk-wise in fp32
 the reference's 2^32-timepoint cap (libinfo.pyx:56).
 """
 
-import logging
-
 import numpy as np
 
 __all__ = ['bincount2d', 'matrix_bincount2d', 'matrix_bincount2d_np']
 
-logger = logging.getLogger(__name__)
-
 _CHUNK_T = 1 << 22  # 4M timepoints per device chunk (fp32-exact counts)
+_MAX_DEVICE_T = 1 << 31  # the device accumulator is int32
 
 
 def bincount2d(a, b, n_a, n_b):
@@ -64,19 +61,19 @@ def matrix_bincount2d(a, b, n_a, n_b, mesh=None):
     assert b.max() < n_b, 'States indices must be contiguous.'
     # negative labels (e.g. -1 unassigned sentinels) would be DROPPED
     # silently by the one-hot path (undercounted joint counts) while
-    # the host fallback crashes — fail loudly on both instead
+    # the host loop crashes — fail loudly on both instead
     assert a.min() >= 0 and b.min() >= 0, \
         'State indices must be non-negative (mask or trim unassigned '\
         'frames before joint counting).'
 
-    try:
-        jc = _matrix_bincount2d_device(a, b, int(n_a), int(n_b),
-                                       mesh=mesh)
-    except Exception:
-        logger.warning('device joint-count path failed; falling back '
-                       'to the host bincount loop', exc_info=True)
+    # a device failure propagates; only a time axis too long for the
+    # device's int32 accumulator takes the host bincount loop
+    if a.shape[0] >= _MAX_DEVICE_T:
         jc = matrix_bincount2d_np(np.asarray(a), np.asarray(b),
                                   int(n_a), int(n_b))
+    else:
+        jc = _matrix_bincount2d_device(a, b, int(n_a), int(n_b),
+                                       mesh=mesh)
 
     if jc.max() < 2 ** 32:
         return jc.astype(np.uint32)
@@ -124,7 +121,7 @@ def _matrix_bincount2d_device(a, b, n_a, n_b, mesh=None):
 
     T, Fa = a.shape
     Fb = b.shape[1]
-    if T >= 2 ** 31:
+    if T >= _MAX_DEVICE_T:
         raise OverflowError('int32 device accumulator would overflow')
 
     chunk_counts = _chunk_counts_jit()
@@ -166,7 +163,8 @@ def _matrix_bincount2d_device(a, b, n_a, n_b, mesh=None):
 
 
 def matrix_bincount2d_np(a, b, n_a, n_b):
-    """Host fallback: per-feature-pair flat bincount."""
+    """Host path: per-feature-pair flat bincount (the test oracle, and
+    time axes too long for the device accumulator)."""
     T, Fa = a.shape
     Fb = b.shape[1]
     jc = np.zeros((Fa, Fb, n_a, n_b), dtype=np.int64)

@@ -8,7 +8,6 @@ the joint distributions with one one-hot matmul on device.
 """
 
 import itertools
-import logging
 import numbers
 import warnings
 
@@ -16,8 +15,6 @@ import numpy as np
 
 from .. import exception
 from . import libinfo
-
-logger = logging.getLogger(__name__)
 
 __all__ = ['mi_matrix', 'weighted_mi', 'mi_matrix_serial', 'joint_counts',
            'mutual_information', 'mi_to_nmi_apc', 'deconvolute_network',
@@ -174,28 +171,20 @@ def weighted_mi(features, weights, n_feature_states=None, normalize=True):
     # scales where the dense (T, F, s) einsum is impractical — there
     # the rounding is scientifically irrelevant and the one-hot matmul
     # pass is the only tractable route.
-    P_joint = None
     if features.size * s_max >= (1 << 22):
-        try:
-            import jax
-            import jax.numpy as jnp
-            # one_hot on bool inputs raises in jax; exposons passes
-            # bool exposure masks
-            F = jax.nn.one_hot(np.asarray(features).astype(np.int32),
-                               s_max, dtype=jnp.float32)
-            F2 = F.reshape(features.shape[0], n_feat * s_max)
-            W2 = F2 * jnp.asarray(weights, jnp.float32)[:, None]
-            PJ = jnp.dot(W2.T, F2,
-                         preferred_element_type=jnp.float32,
-                         precision=jax.lax.Precision.HIGHEST)
-            P_joint = np.asarray(PJ, dtype=np.float64).reshape(
-                n_feat, s_max, n_feat, s_max).transpose(1, 3, 0, 2)
-        except Exception:
-            logger.warning(
-                'device weighted joint-count path failed; falling '
-                'back to the dense host einsum (O(T * F^2 * s^2) '
-                'memory/compute)', exc_info=True)
-    if P_joint is None:
+        import jax
+        import jax.numpy as jnp
+        # one_hot on bool inputs raises in jax; exposons passes bool
+        # exposure masks
+        F = jax.nn.one_hot(features.astype(np.int32), s_max,
+                           dtype=jnp.float32)
+        F2 = F.reshape(features.shape[0], n_feat * s_max)
+        W2 = F2 * jnp.asarray(weights, jnp.float32)[:, None]
+        PJ = jnp.dot(W2.T, F2, preferred_element_type=jnp.float32,
+                     precision=jax.lax.Precision.HIGHEST)
+        P_joint = np.asarray(PJ, dtype=np.float64).reshape(
+            n_feat, s_max, n_feat, s_max).transpose(1, 3, 0, 2)
+    else:
         onehot = np.stack([features == u for u in range(s_max)],
                           axis=-1)
         P_joint = np.einsum('tiu,t,tjv->uvij', onehot, weights, onehot)

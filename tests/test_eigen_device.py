@@ -335,8 +335,8 @@ def test_transpose_timescales_device_matches_host_pipeline():
 
 
 def test_stage1_exception_falls_back_to_arpack(monkeypatch):
-    """A stage-1 crash (device error, NaN-poisoned block) must degrade
-    to the ARPACK engine with fallback=True, not propagate."""
+    """A device error in stage 1 propagates: it is not swapped for the
+    host ARPACK engine behind the caller's back."""
     import scipy.sparse
 
     from enspara_tpu.msm import eigen_device as ed
@@ -347,7 +347,27 @@ def test_stage1_exception_falls_back_to_arpack(monkeypatch):
         raise RuntimeError('synthetic stage-1 failure')
 
     monkeypatch.setattr(ed, '_filtered_subspace_device', boom)
-    vals, vecs, info = ed.eigenspectrum_reversible(
+    with pytest.raises(RuntimeError, match='synthetic stage-1 failure'):
+        ed.eigenspectrum_reversible(
+            scipy.sparse.csr_matrix(T), pi=pi, n_eigs=5,
+            method='filtered', return_info=True)
+
+
+def test_stage1_nonfinite_block_falls_back_to_arpack(monkeypatch):
+    """A block the fp32 filter drove to non-finite values (a numerical
+    breakdown, not a device fault) goes to the ARPACK engine, and the
+    returned info says so."""
+    import scipy.sparse
+
+    from enspara_tpu.msm import eigen_device as ed
+
+    T, pi = _sparse_metastable_msm(3000)
+
+    def nan_block(S, n_eigs, **kw):
+        return np.full((S.shape[0], n_eigs + 4), np.nan), {}
+
+    monkeypatch.setattr(ed, '_filtered_subspace_device', nan_block)
+    vals, _, info = ed.eigenspectrum_reversible(
         scipy.sparse.csr_matrix(T), pi=pi, n_eigs=5,
         method='filtered', return_info=True)
     assert info['fallback']

@@ -240,6 +240,51 @@ def test_joint_counts_reject_negative_states():
         libinfo.matrix_bincount2d(a, b, 2, 2)
 
 
+def test_matrix_bincount2d_device_failure_propagates(monkeypatch):
+    """A failing device joint count raises; it is not swapped for the
+    host bincount loop behind the caller's back."""
+    def boom():
+        def run(*args, **kwargs):
+            raise RuntimeError('device joint count failed')
+        return run
+
+    monkeypatch.setattr(libinfo, '_chunk_counts_jit', boom)
+    a = np.zeros((50, 2), np.int32)
+    with pytest.raises(RuntimeError, match='device joint count failed'):
+        libinfo.matrix_bincount2d(a, a, 2, 2)
+
+
+def test_matrix_bincount2d_long_time_axis_takes_host_loop(monkeypatch):
+    """Only a time axis beyond the device's int32 accumulator takes the
+    host loop, and it gives the same counts."""
+    def device(*args, **kwargs):
+        raise AssertionError('device path taken')
+
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 3, size=(64, 3))
+    b = rng.integers(0, 2, size=(64, 2))
+    want = libinfo.matrix_bincount2d(a, b, 3, 2)
+    monkeypatch.setattr(libinfo, '_MAX_DEVICE_T', 64)
+    monkeypatch.setattr(libinfo, '_matrix_bincount2d_device', device)
+    assert_array_equal(libinfo.matrix_bincount2d(a, b, 3, 2), want)
+
+
+def test_weighted_mi_device_failure_propagates(monkeypatch):
+    """Above the size gate a failing device matmul raises instead of
+    falling back to the dense host einsum."""
+    import jax
+
+    def boom(*args, **kwargs):
+        raise RuntimeError('device one-hot failed')
+
+    monkeypatch.setattr(jax.nn, 'one_hot', boom)
+    T, F = 300_000, 7                       # size*s_max > 2**22 gate
+    feats = np.zeros((T, F), np.int8)
+    feats[::2] = 1
+    with pytest.raises(RuntimeError, match='device one-hot failed'):
+        mutual_info.weighted_mi(feats, np.full(T, 1.0 / T))
+
+
 def test_weighted_mi_accepts_bool_features_on_device_path():
     """exposons passes bool exposure masks; one_hot on bools raises in
     jax, so the device path (engaged above the size gate) must cast

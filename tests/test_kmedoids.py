@@ -1,11 +1,14 @@
 import numpy as np
+import pytest
 from numpy.testing import assert_array_equal, assert_allclose
-from sklearn.datasets import make_blobs
 
 from enspara_tpu.cluster import (kmedoids, hybrid, KHybrid, KMedoids,
                                  kcenters)
 from enspara_tpu.cluster.kmedoids import _kmedoids_pam_update, _msq
 from enspara_tpu.geometry import libdist
+
+# scikit-learn is a test-only dependency; without it the module skips
+make_blobs = pytest.importorskip('sklearn.datasets').make_blobs
 
 
 def test_kmedoids_blobs():
